@@ -1,0 +1,98 @@
+"""CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
+the PyTorch engine (low-delay P / all-intra, default toolset).
+
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --ip 0 --wpp -f 4 -b out.bin -o rec.yuv
+    python -m vvctpu_torch decode -b out.bin -o dec.yuv
+
+Option names follow ``python -m vvctpu``; ``--device`` picks the torch
+device (CUDA by default).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _enc(args) -> int:
+    from .io import yuv
+    from .pipeline import encoder as tenc
+    from .spec import hls
+    from .spec import sequence as seq
+    frames = yuv.read_yuv(args.input, args.wdt, args.hgt, args.frames)
+    if not frames:
+        print("no frames read", file=sys.stderr)
+        return 1
+    cfg = seq.EncoderConfig(qp=args.qp, intra_period=args.intra_period,
+                            wpp=args.wpp)
+    t0 = time.time()
+    data, recons, bits = tenc.encode_sequence(frames, cfg,
+                                              device=args.device)
+    dt = time.time() - t0
+    with open(args.bitstream, "wb") as f:
+        f.write(data)
+    types = {p[0]: p[1] for p in seq.gop_plan(len(frames), args.intra_period,
+                                              1)}
+    for poc, planes in enumerate(frames):
+        p = [seq.psnr(planes[c], recons[poc][c]) for c in range(3)]
+        st = "I" if types[poc] == hls.SLICE_I else "P"
+        print(f"POC {poc:4d} {st}  QP {args.qp:2d}  {bits[poc]:8d} bits  "
+              f"Y {p[0]:6.3f} dB  U {p[1]:6.3f} dB  V {p[2]:6.3f} dB")
+    if args.recon:
+        yuv.write_yuv(args.recon, recons)
+    n = len(frames)
+    total = sum(bits)
+    print(f"SUMMARY: {n} frames, {total} bits, {total / n:.0f} bits/frame, "
+          f"{dt:.2f} s ({n / dt:.3f} fps)")
+    return 0
+
+
+def _dec(args) -> int:
+    from .io import yuv
+    from .pipeline import encoder as tenc
+    with open(args.bitstream, "rb") as f:
+        data = f.read()
+    t0 = time.time()
+    frames, sps = tenc.decode_sequence(data, check_hash=not args.no_hash,
+                                       device=args.device)
+    dt = time.time() - t0
+    yuv.write_yuv(args.output, frames, sps.bit_depth)
+    print(f"decoded {len(frames)} frames "
+          f"{frames[0][0].shape[1]}x{frames[0][0].shape[0]} in {dt:.2f} s "
+          f"({len(frames) / max(dt, 1e-9):.3f} fps)"
+          + ("" if args.no_hash else "; all picture hashes verified"))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="vvctpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    e = sub.add_parser("encode", help="encode raw YUV to Annex-B bitstream")
+    e.add_argument("-i", "--input", required=True, help="input .yuv (I420)")
+    e.add_argument("-b", "--bitstream", required=True, help="output .bin")
+    e.add_argument("-o", "--recon", help="optional recon .yuv")
+    e.add_argument("--wdt", type=int, required=True, help="source width")
+    e.add_argument("--hgt", type=int, required=True, help="source height")
+    e.add_argument("-q", "--qp", type=int, default=32)
+    e.add_argument("-f", "--frames", type=int, default=None)
+    e.add_argument("--ip", "--intra-period", dest="intra_period", type=int,
+                   default=1, help="1 = all-intra, 0 = first frame only, "
+                   "N = every N frames")
+    e.add_argument("--wpp", action="store_true",
+                   help="wavefront entropy lanes (one per CTU row)")
+    e.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+    d = sub.add_parser("decode", help="decode Annex-B bitstream to YUV")
+    d.add_argument("-b", "--bitstream", required=True)
+    d.add_argument("-o", "--output", required=True)
+    d.add_argument("--no-hash", action="store_true",
+                   help="skip decoded-picture-hash verification")
+    d.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    return _enc(args) if args.cmd == "encode" else _dec(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

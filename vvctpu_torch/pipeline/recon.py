@@ -1,0 +1,212 @@
+"""Leaf reconstruction pieces — twin of vvctpu/pipeline/recon.py.
+
+Host-side slot tables (copied), the shared residual/recon chain of one
+component for a batch of blocks, the phase-A pass that reconstructs every
+inter leaf of one size at once (uni-prediction), and the edge padding of
+the decoded picture buffer.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import intra_pred, mc, transform
+from ..spec.codec import FrameDecisions
+from ..spec.inter import BCW_DEFAULT, REF_MARGIN
+from . import plan as planmod
+
+MARGIN = intra_pred.MARGIN
+
+
+def _gather(plane, xs, ys, w: int, h: int):
+    """(B, h, w) blocks of a 2-D plane at (xs, ys)."""
+    dev = plane.device
+    iy = ys.long()[:, None] + torch.arange(h, device=dev)[None]
+    ix = xs.long()[:, None] + torch.arange(w, device=dev)[None]
+    return plane[iy[:, :, None], ix[:, None, :]]
+
+
+def _component(src, pred, xs, ys, w: int, h: int, qp: int, bd: int,
+               encode: bool, rdoq: bool = False, lam_rd: int = 0):
+    """Residual + recon of a batch of (h, w) component blocks with the
+    given predictions (twin of recon._component and wave._comp_local).
+
+    src: source plane when encoding, parsed level plane when decoding.
+    Returns (rec, lev), both (B, h, w) int32."""
+    if encode:
+        resi = _gather(src, xs, ys, w, h).to(torch.int32) - pred
+        coef = transform.forward_transform(resi, h, w, bd=bd)
+        lev = transform.quantize(coef, h, w, qp, intra=True, bd=bd,
+                                 rdoq=rdoq, lam_rd=lam_rd)
+    else:
+        lev = _gather(src, xs, ys, w, h)
+    rec = transform.reconstruct(pred, lev, h, w, qp, bd=bd)
+    return rec, lev
+
+
+def _scatter(buf, blocks, xs, ys, w: int, h: int, off: int):
+    """buf[ys + off + i, xs + off + j] = blocks[:, i, j], in place.  Every
+    block must lie inside buf: callers drop the reference's padded rows
+    (x = y = 2^20, which JAX scatters drop) before they reach the device."""
+    dev = buf.device
+    iy = (ys.long() + off)[:, None] + torch.arange(h, device=dev)[None]
+    ix = (xs.long() + off)[:, None] + torch.arange(w, device=dev)[None]
+    buf[iy[:, :, None], ix[:, None, :]] = blocks
+
+
+def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
+                      encode: bool, rdoq: bool = False, lam_rd: int = 0):
+    """Phase A: every uni-predicted inter s-leaf at once.
+
+    carry: dict of recon buffers, level planes and source planes (updated
+    in place); ib_slots: (B, 13) int32 numpy rows from make_slots_split,
+    whose padded rows (x = y = 2^20) are dropped here on the host; refs:
+    the padded (y, cb, cr) reference planes."""
+    rows = ib_slots[ib_slots[:, 0] < (1 << 20)]
+    if rows.shape[0] == 0:
+        return
+    if (rows[:, 6] != 0).any():
+        raise NotImplementedError("bi-prediction is not in this slice")
+    slots = torch.as_tensor(np.ascontiguousarray(rows),
+                            device=carry["by"].device)
+    cs = s // 2
+    x, y = slots[:, 0], slots[:, 1]
+    mvx, mvy = slots[:, 2], slots[:, 3]
+    pred_y = mc.mc_luma_block(refs[0], x, y, s, mvx, mvy, bd)
+    pred_cb = mc.mc_chroma_block(refs[1], x // 2, y // 2, cs, mvx, mvy, bd)
+    pred_cr = mc.mc_chroma_block(refs[2], x // 2, y // 2, cs, mvx, mvy, bd)
+    ry, lvy = _component(carry["sy"], pred_y, x, y, s, s, qp, bd, encode,
+                         rdoq, lam_rd)
+    rcb, lvcb = _component(carry["scb"], pred_cb, x // 2, y // 2, cs, cs, qp,
+                           bd, encode, rdoq, lam_rd)
+    rcr, lvcr = _component(carry["scr"], pred_cr, x // 2, y // 2, cs, cs, qp,
+                           bd, encode, rdoq, lam_rd)
+    _scatter(carry["by"], ry, x, y, s, s, 1)
+    _scatter(carry["bcb"], rcb, x // 2, y // 2, cs, cs, 1)
+    _scatter(carry["bcr"], rcr, x // 2, y // 2, cs, cs, 1)
+    if encode:
+        _scatter(carry["ly"], lvy, x, y, s, s, 0)
+        _scatter(carry["lcb"], lvcb, x // 2, y // 2, cs, cs, 0)
+        _scatter(carry["lcr"], lvcr, x // 2, y // 2, cs, cs, 0)
+
+
+def _slab_strides(frame_h: int):
+    """(luma ref, chroma ref, luma plane, chroma plane, grid8) per-frame
+    row strides of stacked batch buffers (frame-batched engine)."""
+    return (frame_h + 2 * REF_MARGIN, frame_h // 2 + REF_MARGIN,
+            frame_h, frame_h // 2, frame_h // 8)
+
+
+def make_slots(dec: FrameDecisions, frame_h: int, frame_w: int,
+               ctu: int = 64) -> np.ndarray:
+    op, xs, ys, modes, mv0, mv1, dirs = planmod.leaf_plan(dec, frame_h,
+                                                          frame_w, ctu)
+    mts = dec.mts8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.mts8 is not None else np.zeros_like(op)
+    lf = dec.lfnst8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.lfnst8 is not None else np.zeros_like(op)
+    cm = dec.cmode8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.cmode8 is not None else np.zeros_like(op)
+    mr = dec.mrl8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.mrl8 is not None else np.zeros_like(op)
+    jc = dec.jccr8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.jccr8 is not None else np.zeros_like(op)
+    ip = dec.isp8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.isp8 is not None else np.zeros_like(op)
+    z = np.zeros_like(op)
+    return np.stack([op, xs, ys, modes, mv0[:, 0], mv0[:, 1], mts, lf, cm,
+                     mr, jc, z, z, z, z, ip], axis=1).astype(np.int32)
+
+
+def make_slots_split(dec: FrameDecisions, frame_h: int, frame_w: int,
+                     ctu: int = 64):
+    """(scan_slots, {8/16/32: inter_slot_arrays}) — inter leaves pulled out
+    of the sequential scan (op -> skip) into fixed-capacity per-size batches
+    for the phase-A pass.  Invalid rows use x = y = 2^20 (positive
+    out-of-bounds; scatter-dropped, gathers clamp)."""
+    op, xs, ys, modes, mv0, mv1, dirs = planmod.leaf_plan(dec, frame_h,
+                                                          frame_w, ctu)
+    mts = dec.mts8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.mts8 is not None else np.zeros_like(op)
+    lf = dec.lfnst8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.lfnst8 is not None else np.zeros_like(op)
+    cm = dec.cmode8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.cmode8 is not None else np.zeros_like(op)
+    mr = dec.mrl8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.mrl8 is not None else np.zeros_like(op)
+    jc = dec.jccr8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.jccr8 is not None else np.zeros_like(op)
+    widx = (dec.bcw8[ys // 8, xs // 8].astype(np.int32)
+            if dec.bcw8 is not None
+            else np.full_like(op, BCW_DEFAULT))
+    ip = dec.isp8[ys // 8, xs // 8].astype(np.int32) \
+        if dec.isp8 is not None else np.zeros_like(op)
+    slots = np.stack([op, xs, ys, modes, mv0[:, 0], mv0[:, 1], mts, lf, cm,
+                      mr, jc, mv1[:, 0], mv1[:, 1], dirs, widx, ip],
+                     axis=1).astype(np.int32)
+    inter = {}
+    for ri, (rw, rh) in enumerate(planmod.RECT_SHAPES):
+        opv = planmod.OP_RECT_INTER0 + ri
+        cap = (frame_h // rh) * (frame_w // rw)
+        arr = np.full((cap, 7), 1 << 20, np.int32)
+        m = op == opv
+        k = int(m.sum())
+        arr[:k, 0] = xs[m]
+        arr[:k, 1] = ys[m]
+        arr[:k, 2] = mv0[m, 0]
+        arr[:k, 3] = mv0[m, 1]
+        arr[:k, 4] = mv1[m, 0]
+        arr[:k, 5] = mv1[m, 1]
+        arr[:k, 6] = dirs[m]
+        arr[k:, 2:] = 0
+        inter[(rw, rh)] = arr
+    for i, s in enumerate((8, 16, 32)):
+        opv = i + 4
+        cap = (frame_h // s) * (frame_w // s)
+        # dummy coordinate must be positive-out-of-bounds: jnp .at[] wraps
+        # negative indices instead of dropping them
+        arr = np.full((cap, 13), 1 << 20, np.int32)
+        m = op == opv
+        k = int(m.sum())
+        arr[:k, 0] = xs[m]
+        arr[:k, 1] = ys[m]
+        arr[:k, 2] = mv0[m, 0]
+        arr[:k, 3] = mv0[m, 1]
+        arr[:k, 4] = mv1[m, 0]
+        arr[:k, 5] = mv1[m, 1]
+        arr[:k, 6] = dirs[m]
+        arr[:k, 7] = (dec.bcw8[ys[m] // 8, xs[m] // 8].astype(np.int32)
+                      if dec.bcw8 is not None else BCW_DEFAULT)
+        arr[:k, 8] = (dec.sbt8[ys[m] // 8, xs[m] // 8].astype(np.int32)
+                      if dec.sbt8 is not None else 0)
+        arr[:k, 9] = (dec.gpm8[ys[m] // 8, xs[m] // 8].astype(np.int32)
+                      if dec.gpm8 is not None else 0)
+        if dec.aff8 is not None:
+            arr[:k, 10] = dec.aff8[ys[m] // 8, xs[m] // 8].astype(np.int32)
+            arr[:k, 11] = dec.admv8[ys[m] // 8, xs[m] // 8, 0]
+            arr[:k, 12] = dec.admv8[ys[m] // 8, xs[m] // 8, 1]
+        else:
+            arr[:k, 10:] = 0
+        arr[k:, 2:] = 0
+        arr[k:, 7] = BCW_DEFAULT
+        inter[s] = arr
+    # ops stay canonical: frame_scan's op->branch table routes phase-A
+    # ops (4-6 square inter, 14-17 rect inter) to the no-op branch
+    return slots, inter
+
+
+def _edge_pad(plane, m: int):
+    """np.pad(plane, m, mode='edge') on a 2-D tensor."""
+    h, w = plane.shape
+    dev = plane.device
+    iy = (torch.arange(h + 2 * m, device=dev) - m).clamp(0, h - 1)
+    ix = (torch.arange(w + 2 * m, device=dev) - m).clamp(0, w - 1)
+    return plane[iy[:, None], ix[None, :]]
+
+
+def pad_refs_dev(rec_planes):
+    """Margin-padded (y, cb, cr) reference planes for the decoded picture
+    buffer, on the planes' device (bit-identical to np.pad edge)."""
+    return (_edge_pad(rec_planes[0], REF_MARGIN),
+            _edge_pad(rec_planes[1], REF_MARGIN // 2),
+            _edge_pad(rec_planes[2], REF_MARGIN // 2))

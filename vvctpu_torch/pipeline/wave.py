@@ -1,0 +1,300 @@
+"""Wavefront reconstruction — twin of vvctpu/pipeline/wave.py.
+
+The host orders phase-B leaves into dependency levels: a leaf runs after
+every leaf that produces a reference sample available to it (z-order
+availability).  The device then runs one batch per (level, leaf class)
+and scatters the block results into the recon buffers.  Phase A (every
+inter leaf, which depends on nothing in the current frame) runs first.
+One engine: an eager loop over the schedule, default toolset.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import intra_pred
+from . import plan as planmod
+from . import recon
+from .recon import MARGIN
+
+# ---------------------------------------------------------------------------
+# host: wave schedule
+# ---------------------------------------------------------------------------
+
+_MAX_BATCH = 128
+
+
+def _op_class(op: int, ip: int):
+    """(kind, w, h, d) for a phase-B slot op, or None for skip / phase-A."""
+    if op in (1, 2, 3):
+        s = 8 << (op - 1)
+        if ip > 0:
+            return ("isp", s, s, ip)
+        return ("intra", s, s, 0)
+    if op in (7, 8, 9):
+        return ("ciip", 8 << (op - 7), 8 << (op - 7), 0)
+    if planmod.OP_RECT_INTRA0 <= op < planmod.OP_RECT_INTRA0 + 6:
+        w, h = planmod.RECT_SHAPES[op - planmod.OP_RECT_INTRA0]
+        return ("rect", w, h, 0)
+    if planmod.OP_IBC0 <= op < planmod.OP_IBC0 + 3:
+        s = 8 << (op - planmod.OP_IBC0)
+        return ("ibc", s, s, 0)
+    if planmod.OP_PLT0 <= op < planmod.OP_PLT0 + 3:
+        s = 8 << (op - planmod.OP_PLT0)
+        return ("plt", s, s, 0)
+    return None
+
+
+def _levels_py(slots: np.ndarray, frame_h: int, frame_w: int) -> np.ndarray:
+    """Python reference leveller (fallback when native/wave.c is absent)."""
+    gH, gW = frame_h // 8, frame_w // 8
+    lvl_map = np.zeros((gH, gW), np.int32)
+    lv_out = np.zeros(slots.shape[0], np.int32)
+    for i in range(slots.shape[0]):
+        cls = _op_class(int(slots[i, 0]), int(slots[i, 15]))
+        if cls is None:
+            continue
+        kind, w, h, _ = cls
+        x, y = int(slots[i, 1]), int(slots[i, 2])
+        n = w + h
+        lv = 0
+        gy = y // 8 - 1
+        if gy >= 0:
+            gx0 = max((x - 8) // 8, 0)
+            gx1 = min((x + n) // 8, gW - 1)
+            lv = int(lvl_map[gy, gx0:gx1 + 1].max())
+        gx = x // 8 - 1
+        if gx >= 0:
+            gy0 = max((y - 8) // 8, 0)
+            gy1 = min((y + n) // 8, gH - 1)
+            lv = max(lv, int(lvl_map[gy0:gy1 + 1, gx].max()))
+        if kind == "ibc":
+            sx = min(max(x + int(slots[i, 4]), 0), frame_w - w)
+            sy = min(max(y + int(slots[i, 5]), 0), frame_h - h)
+            lv = max(lv, int(lvl_map[sy // 8:(sy + h - 1) // 8 + 1,
+                                     sx // 8:(sx + w - 1) // 8 + 1].max()))
+        lv += 1
+        lvl_map[y // 8:(y + h - 1) // 8 + 1, x // 8:(x + w - 1) // 8 + 1] = lv
+        lv_out[i] = lv
+    return lv_out
+
+
+# per-op class geometry tables (0 width = not phase-B); isp resolved from
+# the slot's ip column at lookup time
+_NOPS = 28
+_KIND_RANK = {"ciip": 0, "ibc": 1, "intra": 2, "isp": 3, "plt": 4,
+              "rect": 5}
+
+
+def _op_tables():
+    W = np.zeros(_NOPS, np.int32)
+    H = np.zeros(_NOPS, np.int32)
+    IBC = np.zeros(_NOPS, np.int32)
+    KIND = np.zeros(_NOPS, np.int32)      # _KIND_RANK id (isp via ip)
+    for op in range(_NOPS):
+        cls = _op_class(op, 0)
+        if cls is None:
+            continue
+        kind, w, h, _ = cls
+        W[op], H[op] = w, h
+        IBC[op] = int(kind == "ibc")
+        KIND[op] = _KIND_RANK[kind]
+    return W, H, IBC, KIND
+
+
+_OPT = _op_tables()
+
+
+def _levels_c(slots: np.ndarray, frame_h: int, frame_w: int):
+    """Native leveller via native/wave.c (None if the .so lacks it)."""
+    import ctypes
+
+    from ..cabac import native as cnative
+    lib = cnative._load()
+    fn = getattr(lib, "vvc_wave_levels", None) if lib is not None else None
+    if fn is None:
+        return None
+    W, H, IBC, _ = _OPT
+    ops = slots[:, 0]
+    geom = np.empty((slots.shape[0], 3), np.int32)
+    geom[:, 0] = W[ops]
+    geom[:, 1] = H[ops]
+    geom[:, 2] = IBC[ops]
+    gH, gW = frame_h // 8, frame_w // 8
+    lvl_map = np.zeros(gH * gW, np.int32)
+    lv_out = np.empty(slots.shape[0], np.int32)
+    sl = np.ascontiguousarray(slots, np.int32)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                   ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn(sl.ctypes.data, sl.shape[0], sl.shape[1], geom.ctypes.data,
+       gH, gW, frame_w, frame_h, lvl_map.ctypes.data, lv_out.ctypes.data)
+    return lv_out
+
+
+def build_schedule(slots: np.ndarray, frame_h: int, frame_w: int):
+    """Order phase-B leaves into dependency waves.
+
+    Returns [(cls, rows)] in execution order: cls = (kind, w, h, d), rows an
+    (k, 16) int32 array of the slot rows in that batch.  Leaves in one batch
+    are mutually independent; every leaf's available reference region
+    (top/left strips incl. above-right and below-left reach, plus the IBC
+    source rect) is produced by strictly earlier batches.
+
+    Levelling runs in C (native/wave.c) with a Python fallback; grouping is
+    vectorised (stable sort by (level, class) keeps the coding-order row
+    order inside each batch, identical to the per-leaf reference loop)."""
+    lv = _levels_c(slots, frame_h, frame_w)
+    if lv is None:
+        lv = _levels_py(slots, frame_h, frame_w)
+    sel = np.nonzero(lv > 0)[0]
+    if sel.size == 0:
+        return []
+    W, H, _, KIND = _OPT
+    ops = slots[sel, 0]
+    ips = np.where((ops >= 1) & (ops <= 3), slots[sel, 15], 0)
+    kind = np.where(ips > 0, _KIND_RANK["isp"], KIND[ops])
+    d = np.where(ips > 0, ips, 0)
+    # combined sort key: (level, kind-rank, w, h, d); stable keeps coding
+    # order inside each group — matches sorted(batches, key=(lv, cls))
+    key = (lv[sel].astype(np.int64) << 32) | (kind.astype(np.int64) << 24) \
+        | (W[ops].astype(np.int64) << 16) | (H[ops].astype(np.int64) << 8) \
+        | d.astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    sel_o = sel[order]
+    key_o = key[order]
+    bounds = np.nonzero(np.diff(key_o))[0] + 1
+    starts = np.concatenate([[0], bounds])
+    ends = np.concatenate([bounds, [key_o.size]])
+    inv_kind = {v: k for k, v in _KIND_RANK.items()}
+    out = []
+    for s0, e0 in zip(starts, ends):
+        k = int(key_o[s0])
+        cls = (inv_kind[(k >> 24) & 0xFF], (k >> 16) & 0xFF,
+               (k >> 8) & 0xFF, k & 0xFF)
+        rows = slots[sel_o[s0:e0]]
+        for c0 in range(0, rows.shape[0], _MAX_BATCH):
+            out.append((cls, rows[c0:c0 + _MAX_BATCH]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device: leaf batches
+# ---------------------------------------------------------------------------
+
+
+_scatter = recon._scatter
+_comp_local = recon._component
+
+
+def _chroma_leaf(bcb, bcr, scb, scr, x, y, mode_dm, *, s: int, frame_w: int,
+                 frame_h: int, n_ctu_x: int, log2_ctu: int, qp: int, bd: int,
+                 encode: bool, rdoq: bool, lam_rd: int):
+    """Chroma part of a batch of square intra leaves (DM prediction,
+    separate Cb/Cr residuals).  Returns (rec_cb, lev_cb, rec_cr, lev_cr)."""
+    cs = s // 2
+    cx2, cy2 = x // 2, y // 2
+    out = []
+    for buf, src in ((bcb, scb), (bcr, scr)):
+        top, left = intra_pred.build_references(
+            buf, cx2, cy2, s=cs, is_luma=False, frame_w=frame_w // 2,
+            frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd)
+        pred = intra_pred.predict(top, left, mode_dm, s=cs, is_luma=False,
+                                  bd=bd)
+        out += list(_comp_local(src, pred, cx2, cy2, cs, cs, qp, bd, encode,
+                                rdoq, lam_rd))
+    return tuple(out)
+
+
+def _intra_batch(carry, rows, qp: int, lam_rd: int, *, s: int, frame_w: int,
+                 frame_h: int, log2_ctu: int, bd: int, encode: bool,
+                 rdoq: bool):
+    """One dependency level's square intra s-leaves: predict, code and
+    reconstruct luma and chroma, scatter into the carry (in place)."""
+    x, y, mode = rows[:, 1], rows[:, 2], rows[:, 3]
+    n_ctu_x = frame_w >> log2_ctu
+    top, left = intra_pred.build_references(
+        carry["by"], x, y, s=s, is_luma=True, frame_w=frame_w,
+        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd)
+    pred_y = intra_pred.predict(top, left, mode, s=s, is_luma=True, bd=bd)
+    rec_y, lev_y = _comp_local(carry["sy"], pred_y, x, y, s, s, qp, bd,
+                               encode, rdoq, lam_rd)
+    rcb, lev_cb, rcr, lev_cr = _chroma_leaf(
+        carry["bcb"], carry["bcr"], carry["scb"], carry["scr"], x, y, mode,
+        s=s, frame_w=frame_w, frame_h=frame_h, n_ctu_x=n_ctu_x,
+        log2_ctu=log2_ctu, qp=qp, bd=bd, encode=encode, rdoq=rdoq,
+        lam_rd=lam_rd)
+    cs = s // 2
+    _scatter(carry["by"], rec_y, x, y, s, s, 1)
+    _scatter(carry["bcb"], rcb, x // 2, y // 2, cs, cs, 1)
+    _scatter(carry["bcr"], rcr, x // 2, y // 2, cs, cs, 1)
+    if encode:
+        _scatter(carry["ly"], lev_y, x, y, s, s, 0)
+        _scatter(carry["lcb"], lev_cb, x // 2, y // 2, cs, cs, 0)
+        _scatter(carry["lcr"], lev_cr, x // 2, y // 2, cs, cs, 0)
+
+
+def _phase_a(carry, inters, refs, qp: int, lam_rd: int, *, bd: int,
+             encode: bool, rdoq: bool):
+    """All phase-A inter passes (sizes 8, 16, 32)."""
+    for s_sz in (8, 16, 32):
+        recon._inter_batch_pass(carry, inters[s_sz], refs, s_sz, qp, bd,
+                                encode, rdoq, lam_rd)
+
+
+# ---------------------------------------------------------------------------
+# frame loop
+# ---------------------------------------------------------------------------
+
+
+def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
+               frame_h: int, qp: int, bd: int, encode: bool,
+               log2_ctu: int = 6, inter_enabled: bool = False, refs=None,
+               inter=None, rdoq: bool = False, lam_rd: int = 0):
+    """Reconstruct one frame: phase A, then the phase-B intra leaves level
+    by level.
+
+    slots: (N, 16) int32 numpy slot table (make_slots / make_slots_split);
+    planes_*: int32 device planes (source when encoding, parsed levels
+    when decoding); refs: padded (y, cb, cr) reference planes and inter:
+    {8/16/32: numpy phase-A rows} for P frames.  Returns (recon_y,
+    recon_cb, recon_cr, levels_y, levels_cb, levels_cr); the reference's
+    five 8x8-grid tool planes are all zero for the default toolset and
+    are left out."""
+    dev = planes_y.device
+    h2, w2 = frame_h // 2, frame_w // 2
+
+    def z(h, w):
+        return torch.zeros((h, w), dtype=torch.int32, device=dev)
+
+    carry = dict(
+        by=z(frame_h + 1 + MARGIN, frame_w + 1 + MARGIN),
+        bcb=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN),
+        bcr=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN),
+        ly=z(frame_h, frame_w), lcb=z(h2, w2), lcr=z(h2, w2),
+        sy=planes_y.to(torch.int32), scb=planes_cb.to(torch.int32),
+        scr=planes_cr.to(torch.int32))
+    if inter_enabled:
+        _phase_a(carry, inter, refs, qp, lam_rd, bd=bd, encode=encode,
+                 rdoq=rdoq)
+
+    sched = build_schedule(np.asarray(slots), frame_h, frame_w)
+    if sched:
+        # one upload for the whole schedule: an upload from pageable host
+        # memory waits for the stream, so per-batch uploads would
+        # serialise the host with the device
+        all_rows = torch.as_tensor(
+            np.concatenate([rows for _, rows in sched]), device=dev)
+    o = 0
+    for (kind, w, h, _d), rows in sched:
+        if kind != "intra":
+            raise ValueError(f"leaf class {kind!r} is not in this slice")
+        _intra_batch(carry, all_rows[o:o + rows.shape[0]], qp, lam_rd,
+                     s=w, frame_w=frame_w, frame_h=frame_h,
+                     log2_ctu=log2_ctu, bd=bd, encode=encode, rdoq=rdoq)
+        o += rows.shape[0]
+
+    return (carry["by"][1:frame_h + 1, 1:frame_w + 1],
+            carry["bcb"][1:h2 + 1, 1:w2 + 1], carry["bcr"][1:h2 + 1, 1:w2 + 1],
+            carry["ly"], carry["lcb"], carry["lcr"])
