@@ -11,10 +11,21 @@ Phases, in order; any failure exits non-zero:
    card must equal the copied spec model's bitstream, decode on the card
    with hashes verified, and decode in the spec model; the transforms on
    the card must equal the CPU path on worst-case inputs;
-3. the slice at full size: 4 frames of 1080p low-delay P (1 I + 3 P) at
-   QP32 with WPP, encoded and decoded on the card, hashes verified, with
-   the kernel launch counts of that run, the wall time per pipeline stage
-   and the card's busy share sampled by nvidia-smi.
+2b. random access at a small size: a 5-frame 64x96 GOP4 clip (P at
+   distance 4 and B2 with the +-64 ext search, then the frame-batched
+   {B1, B3} layer) encoded on the card must equal the spec model's
+   bitstream; it decodes on the card and in the spec model, hashes
+   verified;
+3. low-delay P at full size: 4 frames of 1080p IPPP (1 I + 3 P) at QP32
+   with WPP, encoded and decoded on the card, hashes verified, with the
+   kernel launch counts of that run, the wall time per pipeline stage
+   and the card's busy share sampled by nvidia-smi;
+4. the north-star workload: 17 frames of 1080p random access GOP16
+   (hierarchical B, intra period 32) at QP32 with WPP, encoded and
+   decoded on the card: hashes verified, encoder recon equal to decoder
+   output, 331707 bits/frame and frame-0 Y-PSNR 32.21 dB (the reference
+   engine's bytes on this generator), 31 me_sad launches; wall time per
+   stage and per temporal layer, and the card's busy share.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -145,6 +156,11 @@ def phase_kernels(dev):
     return rows[False]
 
 
+def _same_planes(*seqs):
+    return all(np.array_equal(a[i], b[i]) for x, y in zip(seqs, seqs[1:])
+               for a, b in zip(x, y) for i in range(3))
+
+
 def phase_small(dev):
     from vvctpu_torch.core import rom
     from vvctpu_torch.kernels import transform as ktf
@@ -164,6 +180,19 @@ def phase_small(dev):
                 raise AssertionError("64x96 IPPP: recon/decoder mismatch")
     print(f"[2] 64x96 IPPP: {len(data)} bytes equal to the spec model; "
           "card and spec decoders verified hashes")
+
+    frames = motion_frames(5)
+    cfg = tseq.EncoderConfig(qp=32, intra_period=0, gop=4)
+    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev)
+    sdata, _, _ = tseq.encode_sequence(frames, cfg)
+    if data != sdata:
+        raise AssertionError("64x96 GOP4: card bitstream != spec model's")
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
+    sout, _ = tseq.decode_sequence(data, check_hash=True)
+    if not _same_planes(recons, out, sout):
+        raise AssertionError("64x96 GOP4: recon/decoder mismatch")
+    print(f"[2b] 64x96 GOP4 (I0 P4 B2 B1 B3): {len(data)} bytes equal to "
+          "the spec model; card and spec decoders verified hashes")
 
     rng = np.random.default_rng(2)
     n_cases = 0
@@ -211,57 +240,101 @@ class GpuBusy:
 def _stages_line(tag, times, wall):
     parts = ", ".join(f"{k} {v:.2f} s" for k, v in
                       sorted(times.items(), key=lambda kv: -kv[1]))
-    return f"[3] {tag} stages (wall {wall:.2f} s): {parts}"
+    return f"{tag} stages (wall {wall:.2f} s): {parts}"
 
 
-def phase_full(dev):
+def _run_full(dev, frames, cfg):
+    """Encode and decode ``frames`` on the card with me_sad's count set to
+    0 just before; returns the run's numbers (recon == decoded and the
+    decoder's hash check are enforced here)."""
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.pipeline import encoder as tenc
     from vvctpu_torch.spec import sequence as tseq
-    n = 4
-    frames = synth_frames(n, 1080, 1920)
-    cfg = tseq.EncoderConfig(qp=32, intra_period=0, wpp=True)
-    enc_t, dec_t = {}, {}
+    r = dict(enc_t={}, dec_t={}, enc_l={}, dec_l={})
     kme.launches = 0
     torch.cuda.synchronize()
     with GpuBusy() as busy_enc:
         t0 = time.time()
-        data, recons, bits = tenc.encode_sequence(frames, cfg, device=dev,
-                                                  stage_times=enc_t)
+        data, recons, bits = tenc.encode_sequence(
+            frames, cfg, device=dev, stage_times=r["enc_t"],
+            layer_times=r["enc_l"])
         torch.cuda.synchronize()
-        t_enc = time.time() - t0
+        r["t_enc"] = time.time() - t0
     with GpuBusy() as busy_dec:
         t0 = time.time()
         out, _ = tenc.decode_sequence(data, check_hash=True, device=dev,
-                                      stage_times=dec_t)
+                                      stage_times=r["dec_t"],
+                                      layer_times=r["dec_l"])
         torch.cuda.synchronize()
-        t_dec = time.time() - t0
-    launches = kme.launches
-    n_p = n - 1
-    if launches != n_p:
-        raise AssertionError(f"me_sad launched {launches} times on the "
-                             f"main path, expected {n_p} (one per P frame)")
-    for a, b in zip(recons, out):
-        for i in range(3):
-            if not np.array_equal(a[i], b[i]):
-                raise AssertionError("1080p: encoder recon != decoder output")
-    psnr = [float(tseq.psnr(f[0], r[0])) for f, r in zip(frames, recons)]
-    for p in psnr:
+        r["t_dec"] = time.time() - t0
+    r["launches"] = kme.launches
+    if not _same_planes(recons, out):
+        raise AssertionError("encoder recon != decoder output")
+    r["psnr"] = [float(tseq.psnr(f[0], x[0])) for f, x in zip(frames, recons)]
+    for p in r["psnr"]:
         if not np.isfinite(p) or p < 25.0:
-            raise AssertionError(f"1080p: implausible Y-PSNR {p}")
-    print(f"[3] 1080p IPPP QP32 WPP, {n} frames (1 I + {n_p} P): encode "
-          f"{t_enc:.2f} s ({n / t_enc:.4f} fps), decode {t_dec:.2f} s "
-          f"({n / t_dec:.4f} fps), hashes verified, recon == decoded")
-    print(f"[3] bits/frame {sum(bits) / n:.1f} (per frame {bits}); "
-          f"Y-PSNR mean {np.mean(psnr):.4f} dB (per frame "
-          f"{[round(p, 4) for p in psnr]})")
-    print(_stages_line("encode", enc_t, t_enc))
-    print(_stages_line("decode", dec_t, t_dec))
-    print(f"[3] card busy (nvidia-smi utilization.gpu mean): encode "
-          f"{busy_enc.share:.1f} % over {busy_enc.samples} samples, decode "
-          f"{busy_dec.share:.1f} % over {busy_dec.samples} samples")
-    print(f"[3] me_sad launches on the main path: {launches}")
-    return launches
+            raise AssertionError(f"implausible Y-PSNR {p}")
+    r.update(bits=bits, busy_enc=busy_enc, busy_dec=busy_dec)
+    return r
+
+
+def _report(tag, r, n):
+    print(f"{tag} encode {r['t_enc']:.2f} s ({n / r['t_enc']:.4f} fps), "
+          f"decode {r['t_dec']:.2f} s ({n / r['t_dec']:.4f} fps), hashes "
+          "verified, recon == decoded")
+    print(f"{tag} bits/frame {sum(r['bits']) / n:.1f} (per frame "
+          f"{r['bits']}); Y-PSNR mean {np.mean(r['psnr']):.4f} dB (per "
+          f"frame {[round(p, 4) for p in r['psnr']]})")
+    print(_stages_line(f"{tag} encode", r["enc_t"], r["t_enc"]))
+    print(_stages_line(f"{tag} decode", r["dec_t"], r["t_dec"]))
+    for k in ("enc", "dec"):
+        b = r[f"busy_{k}"]
+        print(f"{tag} card busy during {k}ode (nvidia-smi utilization.gpu "
+              f"mean): {b.share:.1f} % over {b.samples} samples")
+    print(f"{tag} me_sad launches on this path: {r['launches']}")
+
+
+def phase_full(dev):
+    from vvctpu_torch.spec import sequence as tseq
+    n = 4
+    r = _run_full(dev, synth_frames(n, 1080, 1920),
+                  tseq.EncoderConfig(qp=32, intra_period=0, wpp=True))
+    if r["launches"] != n - 1:
+        raise AssertionError(f"me_sad launched {r['launches']} times on "
+                             f"the IPPP path, expected {n - 1} (one per P)")
+    print(f"[3] 1080p IPPP QP32 WPP, {n} frames (1 I + {n - 1} P)")
+    _report("[3]", r, n)
+    return r["launches"]
+
+
+def phase_ra(dev):
+    from vvctpu_torch.spec import hls
+    from vvctpu_torch.spec import sequence as tseq
+    n = 17
+    cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=16, wpp=True)
+    r = _run_full(dev, synth_frames(n, 1080, 1920), cfg)
+    # me_sad runs once for P16 and once per list for each of the 15 B
+    want = 1 + 2 * sum(1 for e in tseq.gop_plan(n, 32, 16)
+                       if e[1] == hls.SLICE_B)
+    if r["launches"] != want or want != 31:
+        raise AssertionError(f"me_sad launched {r['launches']} times on "
+                             f"the RA path, expected 31")
+    bpf = f"{sum(r['bits']) / n:.0f}"
+    if bpf != "331707":
+        raise AssertionError(f"RA bits/frame {bpf}, the reference engine "
+                             "gives 331707")
+    if round(r["psnr"][0], 2) != 32.21:
+        raise AssertionError(f"RA frame-0 Y-PSNR {r['psnr'][0]:.4f} dB, "
+                             "the reference engine gives 32.21 dB")
+    print(f"[4] 1080p RA GOP16 QP32 WPP, {n} frames (I0 P16 + 15 B): "
+          f"{bpf} bits/frame and frame-0 Y-PSNR {r['psnr'][0]:.2f} dB as "
+          "the reference engine")
+    _report("[4]", r, n)
+    for k in ("enc", "dec"):
+        lt = r[f"{k}_l"]
+        print(f"[4] {k}ode wall per temporal layer: " + ", ".join(
+            f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
+    return r["launches"]
 
 
 def main() -> int:
@@ -271,7 +344,7 @@ def main() -> int:
     dev = torch.device("cuda")
     krow = phase_kernels(dev)
     phase_small(dev)
-    launches = phase_full(dev)
+    launches = phase_full(dev) + phase_ra(dev)
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",

@@ -1,6 +1,7 @@
 """Tests that need the card: the hand-written kernel against its plain
-twin, and the float64 transform products against the CPU path.  They
-skip without CUDA; on the GPU machine (which has no JAX, so the JAX test
+twin, the float64 transform products against the CPU path, and the
+random-access path (ext motion search, B decisions, frame-batched wave)
+on the card against the CPU.  They skip without CUDA; on the GPU machine (which has no JAX, so the JAX test
 configuration is bypassed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -10,9 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from vvctpu_torch.coding import me as tme  # noqa: E402
 from vvctpu_torch.core import rom  # noqa: E402
 from vvctpu_torch.kernels import me_sad as kme  # noqa: E402
 from vvctpu_torch.kernels import transform as ttf  # noqa: E402
+from vvctpu_torch.pipeline import encoder as tenc  # noqa: E402
+from vvctpu_torch.spec import sequence as tseq  # noqa: E402
+from vvctpu_torch.spec.inter import REF_MARGIN  # noqa: E402
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -56,3 +61,44 @@ def test_transforms_card_equals_cpu_worst_case(cuda, n):
             cpu = fn(torch.as_tensor(x), n, n, kh, kh)
             gpu = fn(torch.as_tensor(x, device=cuda), n, n, kh, kh)
             assert torch.equal(gpu.cpu(), cpu), (fn.__name__, n, kh)
+
+
+def _textured(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    return (96 + 60 * np.sin(xx / 9.0) + 40 * np.cos(yy / 7.0)
+            + 25 * np.sin((xx + 2 * yy) / 4.0)
+            + rng.integers(-6, 7, (h, w))).clip(0, 255).astype(np.int32)
+
+
+@pytest.mark.parametrize("tt", [False, True])
+def test_ext_search_card_equals_cpu(cuda, tt):
+    base = _textured(128, 256, 9)
+    orig, ref = base[:, 40:232], base[:, :192]      # a 40 px pan
+    refp = np.pad(ref, REF_MARGIN, mode="edge")
+    maps = [tme.me_pass(torch.as_tensor(orig, device=d),
+                        torch.as_tensor(refp, device=d), 211, frame_w=192,
+                        frame_h=128, tt=tt, ext=True)
+            for d in (cuda, torch.device("cpu"))]
+    assert tuple(maps[0][16][1][1, 4].tolist()) == (40, 0)
+    for k in maps[1]:
+        for a, b in zip(maps[0][k], maps[1][k]):
+            assert torch.equal(a.cpu(), b), k
+
+
+def test_ra_gop4_card_equals_cpu(cuda):
+    """I0 P4 (ext) B2 (ext) and the batched {B1, B3}: same bytes and
+    recon on the card as on the CPU; the card decodes its own stream."""
+    frames = []
+    for t in range(5):
+        y = np.roll(_textured(64, 96, 30), (2 * t, 3 * t), (0, 1))
+        c = np.full((32, 48), 128 + t, np.int32)
+        frames.append([y, c, c.copy()])
+    cfg = tseq.EncoderConfig(qp=32, intra_period=0, gop=4)
+    data, rec, bits = tenc.encode_sequence(frames, cfg, device=cuda)
+    cdata, crec, cbits = tenc.encode_sequence(frames, cfg, device="cpu")
+    assert data == cdata and bits == cbits
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=cuda)
+    for a, b, c in zip(rec, crec, out):
+        for i in range(3):
+            assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])

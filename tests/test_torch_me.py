@@ -57,14 +57,17 @@ def test_twin_equals_xla_and_pallas(kind, tt):
 
 
 def test_me_pass_keys_and_ext_raises():
+    """Both stages give the reference's keys; the ext stage, like the
+    dense one, raises for a frame that is not a multiple of 64."""
     orig, ref = _pair("noisy")
     refp80 = torch.as_tensor(np.pad(ref, REF_MARGIN, mode="edge"))
-    maps = tme.me_pass(torch.as_tensor(orig), refp80, LAM, frame_w=W,
-                       frame_h=H)
-    assert list(maps) == list(jme._ME_KEYS)
-    with pytest.raises(NotImplementedError):
-        tme.me_pass(torch.as_tensor(orig), refp80, LAM, frame_w=W,
-                    frame_h=H, ext=True)
+    for ext in (False, True):
+        maps = tme.me_pass(torch.as_tensor(orig), refp80, LAM, frame_w=W,
+                           frame_h=H, ext=ext)
+        assert list(maps) == list(jme._ME_KEYS)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tme.me_pass(torch.as_tensor(orig[:56]), refp80[:56 + 2 * REF_MARGIN],
+                    LAM, frame_w=W, frame_h=56, ext=True)
 
 
 def test_offsets_with_bits():

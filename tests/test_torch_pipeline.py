@@ -67,7 +67,7 @@ def test_corrupt_stream_fails_hash():
         tenc.decode_sequence(bytes(bad), check_hash=True, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(gop=4), dict(tile_cols=2),
+@pytest.mark.parametrize("kw", [dict(bcw=True), dict(tile_cols=2),
                                 dict(subpic_cols=2), dict(lmcs=True),
                                 dict(alf=True), dict(mctf=True),
                                 dict(rc_bits_per_frame=1000),

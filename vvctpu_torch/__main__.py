@@ -1,8 +1,9 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
-the PyTorch engine (low-delay P / all-intra, default toolset).
+the PyTorch engine (all-intra, low-delay P or random access, default
+toolset).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
-        --ip 0 --wpp -f 4 -b out.bin -o rec.yuv
+        --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
@@ -25,19 +26,21 @@ def _enc(args) -> int:
         print("no frames read", file=sys.stderr)
         return 1
     cfg = seq.EncoderConfig(qp=args.qp, intra_period=args.intra_period,
-                            wpp=args.wpp)
+                            gop=args.gop, wpp=args.wpp)
     t0 = time.time()
     data, recons, bits = tenc.encode_sequence(frames, cfg,
                                               device=args.device)
     dt = time.time() - t0
     with open(args.bitstream, "wb") as f:
         f.write(data)
-    types = {p[0]: p[1] for p in seq.gop_plan(len(frames), args.intra_period,
-                                              1)}
+    plan = {p[0]: p for p in seq.gop_plan(len(frames), args.intra_period,
+                                          args.gop)}
+    letter = {hls.SLICE_I: "I", hls.SLICE_P: "P", hls.SLICE_B: "B"}
     for poc, planes in enumerate(frames):
         p = [seq.psnr(planes[c], recons[poc][c]) for c in range(3)]
-        st = "I" if types[poc] == hls.SLICE_I else "P"
-        print(f"POC {poc:4d} {st}  QP {args.qp:2d}  {bits[poc]:8d} bits  "
+        _, stype, _, qpd = plan[poc]
+        print(f"POC {poc:4d} {letter[stype]}  QP {args.qp + qpd:2d}  "
+              f"{bits[poc]:8d} bits  "
               f"Y {p[0]:6.3f} dB  U {p[1]:6.3f} dB  V {p[2]:6.3f} dB")
     if args.recon:
         yuv.write_yuv(args.recon, recons)
@@ -79,6 +82,9 @@ def main(argv=None) -> int:
     e.add_argument("--ip", "--intra-period", dest="intra_period", type=int,
                    default=1, help="1 = all-intra, 0 = first frame only, "
                    "N = every N frames")
+    e.add_argument("--gop", type=int, default=1,
+                   help="GOP size: 1 = I/P only, N > 1 = hierarchical-B "
+                   "random access with anchors every N frames")
     e.add_argument("--wpp", action="store_true",
                    help="wavefront entropy lanes (one per CTU row)")
     e.add_argument("--device", default=None,

@@ -4,7 +4,8 @@ Per block size one batched pass builds the in-frame references of every
 block, predicts all 67 modes, takes the 8x8-tiled Hadamard SATD and the
 integer cost SATD << 8 + bits * lambda, and keeps the first minimum.  The
 QT partition and the P-frame intra/inter choice are then assembled on the
-host exactly as in the reference.  Default toolset only.
+host exactly as in the reference; B frames choose per block among
+intra, L0, L1 and the bi-predicted average.  Default toolset only.
 """
 from __future__ import annotations
 
@@ -141,19 +142,25 @@ def decide_frame(orig_y: np.ndarray, qp: int, bd: int = 8, *,
                                                      device=device))
 
 
+def _orig_dev(orig_y, device):
+    return torch.as_tensor(np.ascontiguousarray(orig_y, np.int32),
+                           device=device)
+
+
 def decide_frame_p(orig_y: np.ndarray, ref_y, qp: int, bd: int = 8, *,
-                   device) -> FrameDecisions:
+                   device, me_ext: bool = False) -> FrameDecisions:
     """P-frame decisions: ref_y is the REF_MARGIN edge-padded reference
-    luma plane on the device (the DPB entry)."""
+    luma plane on the device (the DPB entry); me_ext widens the integer
+    search to +-ME_EXT (the reference is more than one frame away)."""
     h, w = orig_y.shape
     lam = lambda_satd_fp(qp)
     B = est.decision_bits(1, qp)
     jbuf = _pad_buf(orig_y, device)
-    jorig = torch.as_tensor(np.ascontiguousarray(orig_y, np.int32),
-                            device=device)
+    jorig = _orig_dev(orig_y, device)
     refp80 = ref_y
     with record_function("me"):
-        memaps = tme.me_pass(jorig, refp80, lam, frame_w=w, frame_h=h)
+        memaps = tme.me_pass(jorig, refp80, lam, frame_w=w, frame_h=h,
+                             ext=me_ext)
     planes = tme.quarter_phase_planes(refp80, bd)
 
     data = {}
@@ -185,4 +192,69 @@ def decide_frame_p(orig_y: np.ndarray, ref_y, qp: int, bd: int = 8, *,
     dec.isp8[:] = 0
     dec.mv8[..., 0] = np.where(itf, mvx, 0)   # already 1/16-pel
     dec.mv8[..., 1] = np.where(itf, mvy, 0)
+    return dec
+
+
+def decide_frame_b(orig_y: np.ndarray, ref0_y, ref1_y, qp: int,
+                   bd: int = 8, *, device,
+                   me_ext: bool = False) -> FrameDecisions:
+    """B-frame decisions (twin of vvctpu.coding.decide.decide_frame_b,
+    default toolset): per block size the intra cost, the refined uni cost
+    of each list and the bi cost; the first minimum over [intra, L0, L1,
+    BI] wins, so a tie keeps the earlier kind.  ref0_y / ref1_y are the
+    REF_MARGIN edge-padded reference luma planes on the device."""
+    h, w = orig_y.shape
+    lam = lambda_satd_fp(qp)
+    B = est.decision_bits(0, qp)
+    jbuf = _pad_buf(orig_y, device)
+    jorig = _orig_dev(orig_y, device)
+    refs = (ref0_y, ref1_y)
+    with record_function("me"):
+        memaps = [tme.me_pass(jorig, r, lam, frame_w=w, frame_h=h,
+                              ext=me_ext) for r in refs]
+    planes = [tme.quarter_phase_planes(r, bd) for r in refs]
+
+    data = {}
+    for s in (8, 16, 32):
+        icost, imode = size_pass(jbuf, lam, s=s, frame_w=w, frame_h=h,
+                                 bd=bd, B=B)
+        ucost, umv = [], []
+        for lst in range(2):
+            rc, rmv = tme.refine_pass(jorig, refs[lst], memaps[lst][s][1],
+                                      lam, s=s, frame_w=w, frame_h=h, bd=bd,
+                                      planes=planes[lst])
+            ucost.append(rc)
+            umv.append(rmv)
+        bcost, _ = tme.bi_cost_pass(jorig, umv[0], umv[1], lam, s=s,
+                                    frame_w=w, frame_h=h, bd=bd,
+                                    planes0=planes[0], planes1=planes[1])
+        costs = torch.stack([icost, ucost[0], ucost[1], bcost]).cpu() \
+            .numpy().astype(np.int64)
+        data[s] = (costs.min(0), imode.cpu().numpy(),
+                   costs.argmin(0).astype(np.int32), umv[0].cpu().numpy(),
+                   umv[1].cpu().numpy())
+
+    dec = FrameDecisions.empty(h, w)
+    (c8, im8, k8, mva8, mvb8) = data[8]
+    (c16, im16, k16, mva16, mvb16) = data[16]
+    (c32, im32, k32, mva32, mvb32) = data[32]
+    use16, use8 = _split_and_fill(dec, B, lam, c8, c16, c32)
+    kind = _pick(k32, k16, k8, use16, use8)
+    mode = _pick(im32, im16, im8, use16, use8)
+    itf = kind > 0
+    dec.inter8[:] = itf.astype(np.uint8)
+    dec.modes8[:] = np.where(itf, 0, mode)
+    dec.mrl8[:] = 0
+    dec.isp8[:] = 0
+    # kind 1 = L0, 2 = L1, 3 = BI -> dir 0 / 1 / 2
+    dec.dir8[:] = np.where(itf, kind - 1, 0).astype(np.uint8)
+    use0 = (kind == 1) | (kind == 3)
+    use1 = (kind == 2) | (kind == 3)
+    for c in range(2):
+        dec.mv8[..., c] = np.where(
+            use0, _pick(mva32[..., c], mva16[..., c], mva8[..., c], use16,
+                        use8), 0)
+        dec.mv8_l1[..., c] = np.where(
+            use1, _pick(mvb32[..., c], mvb16[..., c], mvb8[..., c], use16,
+                        use8), 0)
     return dec

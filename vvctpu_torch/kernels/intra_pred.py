@@ -49,20 +49,27 @@ def morton8(x, y, n_ctu_x: int, log2_ctu: int = 6):
 
 def build_references(buf, x, y, *, s: int, is_luma: bool, frame_w: int,
                      frame_h: int, n_ctu_x: int, log2_ctu: int = 6,
-                     bd: int = 8, in_frame_only: bool = False, y_off=0):
+                     bd: int = 8, in_frame_only: bool = False, f=None):
     """(top, left) reference samples, each (B, 2s+1) int32 (index 0 = the
     corner), for square s-blocks at (x, y) ((B,) int32).
 
     ``buf`` is the (frame_h + 1 + MARGIN, frame_w + 1 + MARGIN) recon
-    buffer with a one-sample top/left offset; y_off is a row offset into
-    it.  Missing samples are substituted as in the spec."""
+    buffer with a one-sample top/left offset, or an (F, ...) stack of them
+    with ``f`` the (B,) frame index of each block: samples are read from
+    the block's own frame only.  Missing samples are substituted as in the
+    spec."""
     dev = buf.device
     n = 2 * s
     i = torch.arange(n + 1, device=dev)
-    ys0 = (y + y_off).long()
+    ys0 = y.long()
     xs0 = x.long()
-    top_raw = buf[ys0[:, None], xs0[:, None] + i]
-    left_raw = buf[ys0[:, None] + i, xs0[:, None]]
+    if f is None:
+        top_raw = buf[ys0[:, None], xs0[:, None] + i]
+        left_raw = buf[ys0[:, None] + i, xs0[:, None]]
+    else:
+        fl = f.long()[:, None]
+        top_raw = buf[fl, ys0[:, None], xs0[:, None] + i]
+        left_raw = buf[fl, ys0[:, None] + i, xs0[:, None]]
     scan_vals = torch.cat([left_raw[:, 1:].flip(1), top_raw], 1)
 
     B = x.shape[0]

@@ -1,7 +1,9 @@
 """PyTorch encoder/decoder: device passes + host entropy + NAL assembly.
 
-Twin of vvctpu/pipeline/encoder.py for this slice: I and P frames
-(``gop == 1``, any ``intra_period``), one tile, the default toolset.  The
+Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
+P and random access (hierarchical B, any ``gop`` and ``intra_period``),
+one tile, CTU 64, the default toolset.  One temporal layer's B frames are
+decided frame by frame and reconstructed in one frame-batched wave.  The
 bitstreams are byte-identical to the reference engine's and to the spec
 model's.  Anything outside the slice raises.
 """
@@ -39,8 +41,6 @@ _SPS_OFF = ("mts", "lfnst", "mip", "mrl", "ts", "jccr", "mmvd", "bcw",
 def check_config(cfg: sseq.EncoderConfig) -> None:
     """Raise ValueError for a configuration outside this slice."""
     bad = [t for t in _OFF_TOOLS if getattr(cfg, t)]
-    if cfg.gop != 1:
-        bad.append(f"gop={cfg.gop}")
     if cfg.tile_cols * cfg.tile_rows != 1:
         bad.append("tiles")
     if cfg.subpic_cols * cfg.subpic_rows != 1:
@@ -52,8 +52,8 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
     if cfg.bit_depth != 8:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
-        raise ValueError("outside the PyTorch port's slice (low-delay P, "
-                         "default toolset): " + ", ".join(bad))
+        raise ValueError("outside the PyTorch port's slice (one tile, CTU "
+                         "64, default toolset): " + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -67,28 +67,29 @@ def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
                          + ", ".join(bad))
 
 
-def _run_scan(sps, dec, py, pcb, pcr, dpb, ref_pocs, scan_kw, device):
-    """Reconstruct one frame (single tile) on the device; returns
-    frame_wave's (recon y/cb/cr, levels y/cb/cr).  dpb values are padded
-    device ref 3-tuples."""
-    is_p = bool(ref_pocs)
-    kw = {}
-    if is_p:
-        slots, isl = recon.make_slots_split(dec, sps.height, sps.width,
-                                            1 << sps.log2_ctu)
-        kw.update(refs=dpb[ref_pocs[0]], inter=isl)
-    else:
-        slots = recon.make_slots(dec, sps.height, sps.width,
-                                 1 << sps.log2_ctu)
-
+def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device):
+    """frame_wave_batch input of one frame: slot tables, the planes on the
+    device and, for inter frames, the phase-A rows and the padded device
+    reference planes (three per list)."""
     def up(p):
         return torch.as_tensor(np.ascontiguousarray(p, np.int32),
                                device=device)
 
-    return wave.frame_wave(slots, up(py), up(pcb), up(pcr),
-                           frame_w=sps.width, frame_h=sps.height,
-                           log2_ctu=sps.log2_ctu, inter_enabled=is_p,
-                           **kw, **scan_kw)
+    fr = dict(py=up(py), pcb=up(pcb), pcr=up(pcr))
+    if ref_pocs:
+        fr["slots"], fr["inter"] = recon.make_slots_split(
+            dec, sps.height, sps.width, 1 << sps.log2_ctu)
+        fr["refs"] = tuple(p for r in ref_pocs for p in dpb[r])
+    else:
+        fr["slots"] = recon.make_slots(dec, sps.height, sps.width,
+                                       1 << sps.log2_ctu)
+    return fr
+
+
+def _tid(stype, qpd: int) -> int:
+    """Temporal sublayer id of a picture (twin of the reference's GOP-plan
+    layer): B pictures sit at max(qp_delta - 1, 1), I and P at 0."""
+    return max(qpd - 1, 1) if stype == hls.SLICE_B else 0
 
 
 def _fetch(ts):
@@ -115,10 +116,12 @@ def _stage(name: str, times, device=None):
 
 
 def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
-                    stage_times=None):
+                    stage_times=None, layer_times=None):
     """Encode planes [[y, cb, cr], ...] with ``cfg``; returns (annex-B
     bytes, cropped recon planes, bits per frame).  stage_times: optional
-    dict that receives the wall seconds of each pipeline stage."""
+    dict that receives the wall seconds of each pipeline stage;
+    layer_times: optional dict that receives the wall seconds spent on
+    each temporal layer (keys "layer <temporal id>")."""
     check_config(cfg)
     dev = devmod.resolve(device)
     h, w = frames[0][0].shape
@@ -130,33 +133,19 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
     bits = [None] * len(frames)
     dpb = {}   # poc -> padded filtered recon planes on the device
     mot = {}   # poc -> motion_record (TMVP side table)
+    plan = sseq.gop_plan(len(frames), cfg.intra_period, cfg.gop)
     # host entropy of frame i overlaps the device passes of frame i + 1;
     # one worker keeps coding order (syntax tracing needs the main thread)
     pool = None if _trace.enabled else ThreadPoolExecutor(max_workers=1)
     try:
-        for poc, stype, ref_pocs, qpd in sseq.gop_plan(
-                len(frames), cfg.intra_period, cfg.gop):
-            padded = scodec.pad_planes(frames[poc], sps)
-            qp = cfg.qp + qpd
-            if stype == hls.SLICE_P and abs(poc - ref_pocs[0]) != 1:
-                raise ValueError("references more than one frame away are "
-                                 "not in this slice")
-            with _stage("decide", stage_times, dev):
-                if stype == hls.SLICE_I:
-                    dec = tdecide.decide_frame(padded[0], qp, cfg.bit_depth,
-                                               device=dev)
-                else:
-                    dec = tdecide.decide_frame_p(
-                        padded[0], dpb[ref_pocs[0]][0], qp, cfg.bit_depth,
-                        device=dev)
-            scan_kw = dict(qp=qp, bd=cfg.bit_depth, encode=True,
-                           rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp))
-            with _stage("wave", stage_times, dev):
-                out = _run_scan(sps, dec, padded[0], padded[1], padded[2],
-                                dpb, ref_pocs, scan_kw, dev)
-            _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs,
-                          qpd, qp, out, dpb, mot, nals, recons, bits, pool,
-                          stage_times, dev)
+        pi = 0
+        while pi < len(plan):
+            grp = _b_group(plan, pi)
+            pi += len(grp)
+            _, stype, _, qpd = grp[0]
+            with _stage(f"layer {_tid(stype, qpd)}", layer_times, dev):
+                _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals,
+                              recons, bits, pool, stage_times, dev)
         flat = []
         for n in nals:
             flat.extend(n.result() if hasattr(n, "result") else [n])
@@ -164,6 +153,71 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
         if pool is not None:
             pool.shutdown()
     return bs.write_annexb(flat), recons, bits
+
+
+def _b_group(plan, i, cap: int = 8):
+    """Maximal run plan[i:j] of mutually-independent B entries with equal
+    qp_delta and equal BI symmetry — the frames of one temporal layer
+    under the breadth-first GOP plan (twin of the reference's)."""
+    p0, s0, r0, q0 = plan[i]
+    if s0 != hls.SLICE_B or len(r0) != 2:
+        return plan[i:i + 1]
+
+    def sym(e):
+        poc, _, refs, _ = e
+        return (refs[0] < poc < refs[1]
+                and poc - refs[0] == refs[1] - poc)
+
+    grp = [plan[i]]
+    pocs = {p0}
+    for j in range(i + 1, min(len(plan), i + cap)):
+        poc, stype, refs, qpd = plan[j]
+        if (stype != hls.SLICE_B or len(refs) != 2 or qpd != q0
+                or sym(plan[j]) != sym(plan[i])
+                or any(r in pocs for r in refs)):
+            break
+        grp.append(plan[j])
+        pocs.add(poc)
+    return grp
+
+
+def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
+                  pool, stage_times, dev):
+    """Encode plan entries that share slice type and QP and reference no
+    picture among themselves: the decisions of every frame, one
+    frame-batched wave, then each frame's loop filters and entropy."""
+    qpd = grp[0][3]
+    qp = cfg.qp + qpd
+    decs, padded_l, frs = [], [], []
+    for poc, stype, ref_pocs, _ in grp:
+        padded = scodec.pad_planes(frames[poc], sps)
+        # the ext search runs when a reference is more than a frame away
+        me_ext = any(abs(poc - r) > 1 for r in ref_pocs)
+        with _stage("decide", stage_times, dev):
+            if stype == hls.SLICE_I:
+                dec = tdecide.decide_frame(padded[0], qp, cfg.bit_depth,
+                                           device=dev)
+            elif stype == hls.SLICE_P:
+                dec = tdecide.decide_frame_p(
+                    padded[0], dpb[ref_pocs[0]][0], qp, cfg.bit_depth,
+                    device=dev, me_ext=me_ext)
+            else:
+                dec = tdecide.decide_frame_b(
+                    padded[0], dpb[ref_pocs[0]][0], dpb[ref_pocs[1]][0], qp,
+                    cfg.bit_depth, device=dev, me_ext=me_ext)
+        decs.append(dec)
+        padded_l.append(padded)
+        frs.append(_wave_frame(sps, dec, *padded, dpb, ref_pocs, dev))
+    with _stage("wave", stage_times, dev):
+        outs = wave.frame_wave_batch(
+            frs, frame_w=sps.width, frame_h=sps.height,
+            log2_ctu=sps.log2_ctu, qp=qp, bd=cfg.bit_depth, encode=True,
+            rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp))
+    for (poc, stype, ref_pocs, _), dec, padded, out in zip(grp, decs,
+                                                           padded_l, outs):
+        _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs,
+                      qpd, qp, out, dpb, mot, nals, recons, bits, pool,
+                      stage_times, dev)
 
 
 def _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs, qpd,
@@ -202,12 +256,13 @@ def _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs, qpd,
         cropped = scodec.crop_planes(rec, sps)
         recons[poc] = cropped
         bits[poc] = 8 * len(payload)
+        tid = _tid(stype, qpd)
         return [bs.NalUnit(bs.NAL_IDR_N_LP if is_intra else bs.NAL_TRAIL,
-                           payload, temporal_id=0),
+                           payload, temporal_id=tid),
                 bs.NalUnit(bs.NAL_SUFFIX_SEI,
                            hls.write_pic_hash_sei(cropped, cfg.bit_depth,
                                                   cfg.hash_type),
-                           temporal_id=0)]
+                           temporal_id=tid)]
 
     if pool is not None:
         nals.append(pool.submit(tail))
@@ -216,11 +271,12 @@ def _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs, qpd,
 
 
 def decode_sequence(data: bytes, check_hash: bool = True, device=None,
-                    stage_times=None):
-    """Two-pass decoder: host CABAC parse of every slice, then per-frame
-    device reconstruction and loop filters.  Returns (frames [cropped
-    planes], sps); raises on a hash mismatch.  stage_times: as in
-    encode_sequence."""
+                    stage_times=None, layer_times=None):
+    """Two-pass decoder: host CABAC parse of every slice, then device
+    reconstruction and loop filters, one group of mutually independent
+    frames (one temporal layer's B pictures, or a run of intra pictures)
+    per frame-batched wave.  Returns (frames [cropped planes], sps); raises
+    on a hash mismatch.  stage_times, layer_times: as in encode_sequence."""
     from ..io import streamtools
     dev = devmod.resolve(device)
     if streamtools.subpic_layout(data) is not None:
@@ -228,15 +284,42 @@ def decode_sequence(data: bytes, check_hash: bool = True, device=None,
     with _stage("parse", stage_times):
         sps, pps_map, entries = _parse(data, check_hash)
     frames, dpb = {}, {}
-    pending = None   # fetched after the next frame's device work is queued
-    for e in entries:
-        rec = _decode_one(e, sps, pps_map, dpb, dev, stage_times)
-        if pending is not None:
-            _dec_fetch(*pending, sps, frames, check_hash, stage_times, dev)
-        pending = (e, rec)
-    if pending is not None:
-        _dec_fetch(*pending, sps, frames, check_hash, stage_times, dev)
+    pending = []   # fetched after the next group's device work is queued
+    i = 0
+    while i < len(entries):
+        grp = _dec_group(entries, i)
+        sh = grp[0]["sh"]
+        with _stage(f"layer {_tid(sh.slice_type, sh.qp_delta)}",
+                    layer_times, dev):
+            done = _decode_group(grp, sps, pps_map, dpb, dev, stage_times)
+            for pe, pr in pending:
+                _dec_fetch(pe, pr, sps, frames, check_hash, stage_times, dev)
+        pending = done
+        i += len(grp)
+    for pe, pr in pending:
+        _dec_fetch(pe, pr, sps, frames, check_hash, stage_times, dev)
     return [frames[p] for p in sorted(frames)], sps
+
+
+def _dec_group(entries, i, cap: int = 8):
+    """entries[i:j]: the longest run (at most ``cap``) with the same slice
+    type, BI symmetry, QP delta and reference count in which no entry
+    references another (twin of the reference decoder's grouping)."""
+    def gkey(e):
+        sh = e["sh"]
+        return (sh.slice_type != hls.SLICE_I, scodec.bi_sym(sh),
+                sh.qp_delta, len(sh.ref_pocs), sh.pps_id)
+
+    k0 = gkey(entries[i])
+    grp = [entries[i]]
+    pocs = {entries[i]["sh"].poc}
+    j = i + 1
+    while (j < len(entries) and len(grp) < cap and gkey(entries[j]) == k0
+           and not any(r in pocs for r in entries[j]["sh"].ref_pocs)):
+        grp.append(entries[j])
+        pocs.add(entries[j]["sh"].poc)
+        j += 1
+    return grp
 
 
 def _parse(data: bytes, check_hash: bool):
@@ -256,8 +339,6 @@ def _parse(data: bytes, check_hash: bool):
                               bs.NAL_TRAIL, bs.NAL_CRA):
             sh, dec, levels, sao_params, _alf = entropy.parse_frame_syntax(
                 nal.payload, sps, pps_map, motion=mot)
-            if sh.slice_type == hls.SLICE_B:
-                raise ValueError("B slices are not in this slice")
             mot[sh.poc] = scodec.motion_record(dec, sh.ref_pocs)
             entries.append(dict(sh=sh, dec=dec, levels=levels,
                                 sao=sao_params, digest=None))
@@ -293,15 +374,17 @@ def _dec_fetch(e, rec, sps, frames, check_hash, stage_times, dev):
             raise ValueError(f"decoded-picture hash mismatch at poc {sh.poc}")
 
 
-def _decode_one(e, sps, pps_map, dpb, device, stage_times):
-    sh, dec, levels = e["sh"], e["dec"], e["levels"]
+def _decode_group(grp, sps, pps_map, dpb, device, stage_times):
+    """Reconstruct a group of parsed frames in one frame-batched wave and
+    queue their loop filters; returns [(entry, filtered device planes)]."""
+    sh = grp[0]["sh"]
     qp = pps_map[sh.pps_id].init_qp + sh.qp_delta
-    is_p = sh.slice_type != hls.SLICE_I
-    scan_kw = dict(qp=qp, bd=sps.bit_depth, encode=False)
+    frs = [_wave_frame(sps, e["dec"], *e["levels"], dpb,
+                       e["sh"].ref_pocs if sh.slice_type != hls.SLICE_I
+                       else (), device) for e in grp]
     with _stage("wave", stage_times, device):
-        ry, rcb, rcr, _, _, _ = _run_scan(sps, dec, levels[0], levels[1],
-                                     levels[2], dpb,
-                                     sh.ref_pocs if is_p else (), scan_kw,
-                                     device)
-    return _dec_filters(e, sps, [ry, rcb, rcr], qp, dpb, stage_times,
-                        device)
+        outs = wave.frame_wave_batch(
+            frs, frame_w=sps.width, frame_h=sps.height,
+            log2_ctu=sps.log2_ctu, qp=qp, bd=sps.bit_depth, encode=False)
+    return [(e, _dec_filters(e, sps, list(out[:3]), qp, dpb, stage_times,
+                             device)) for e, out in zip(grp, outs)]

@@ -2,8 +2,10 @@
 
 Host-side slot tables (copied), the shared residual/recon chain of one
 component for a batch of blocks, the phase-A pass that reconstructs every
-inter leaf of one size at once (uni-prediction), and the edge padding of
-the decoded picture buffer.
+inter leaf of one size at once (uni- and bi-prediction), and the edge
+padding of the decoded picture buffer.  Device planes carry a leading
+frame axis (F, h, w) and every block its frame index, so one pass serves
+F mutually independent frames.
 """
 from __future__ import annotations
 
@@ -12,82 +14,99 @@ import torch
 
 from ..kernels import intra_pred, mc, transform
 from ..spec.codec import FrameDecisions
-from ..spec.inter import BCW_DEFAULT, REF_MARGIN
+from ..spec.inter import BCW_DEFAULT, BCW_W, REF_MARGIN
 from . import plan as planmod
 
 MARGIN = intra_pred.MARGIN
 
 
-def _gather(plane, xs, ys, w: int, h: int):
-    """(B, h, w) blocks of a 2-D plane at (xs, ys)."""
-    dev = plane.device
+def _index(f, xs, ys, w: int, h: int):
+    """[f, y, x] index tensors of (B, h, w) blocks at (xs, ys) of frame f."""
+    dev = xs.device
     iy = ys.long()[:, None] + torch.arange(h, device=dev)[None]
     ix = xs.long()[:, None] + torch.arange(w, device=dev)[None]
-    return plane[iy[:, :, None], ix[:, None, :]]
+    return f.long()[:, None, None], iy[:, :, None], ix[:, None, :]
 
 
-def _component(src, pred, xs, ys, w: int, h: int, qp: int, bd: int,
+def _gather(plane, f, xs, ys, w: int, h: int):
+    """(B, h, w) blocks of an (F, H, W) plane stack at (f, xs, ys)."""
+    return plane[_index(f, xs, ys, w, h)]
+
+
+def _component(src, pred, f, xs, ys, w: int, h: int, qp: int, bd: int,
                encode: bool, rdoq: bool = False, lam_rd: int = 0):
     """Residual + recon of a batch of (h, w) component blocks with the
     given predictions (twin of recon._component and wave._comp_local).
 
-    src: source plane when encoding, parsed level plane when decoding.
-    Returns (rec, lev), both (B, h, w) int32."""
+    src: source planes when encoding, parsed level planes when decoding,
+    (F, H, W).  Returns (rec, lev), both (B, h, w) int32."""
     if encode:
-        resi = _gather(src, xs, ys, w, h).to(torch.int32) - pred
+        resi = _gather(src, f, xs, ys, w, h).to(torch.int32) - pred
         coef = transform.forward_transform(resi, h, w, bd=bd)
         lev = transform.quantize(coef, h, w, qp, intra=True, bd=bd,
                                  rdoq=rdoq, lam_rd=lam_rd)
     else:
-        lev = _gather(src, xs, ys, w, h)
+        lev = _gather(src, f, xs, ys, w, h)
     rec = transform.reconstruct(pred, lev, h, w, qp, bd=bd)
     return rec, lev
 
 
-def _scatter(buf, blocks, xs, ys, w: int, h: int, off: int):
-    """buf[ys + off + i, xs + off + j] = blocks[:, i, j], in place.  Every
-    block must lie inside buf: callers drop the reference's padded rows
-    (x = y = 2^20, which JAX scatters drop) before they reach the device."""
-    dev = buf.device
-    iy = (ys.long() + off)[:, None] + torch.arange(h, device=dev)[None]
-    ix = (xs.long() + off)[:, None] + torch.arange(w, device=dev)[None]
-    buf[iy[:, :, None], ix[:, None, :]] = blocks
+def _scatter(buf, blocks, f, xs, ys, w: int, h: int, off: int):
+    """buf[f, ys + off + i, xs + off + j] = blocks[:, i, j], in place.
+    Every block must lie inside its frame: callers drop the reference's
+    padded rows (x = y = 2^20, which JAX scatters drop) before they reach
+    the device."""
+    buf[_index(f, xs + off, ys + off, w, h)] = blocks
 
 
 def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
                       encode: bool, rdoq: bool = False, lam_rd: int = 0):
-    """Phase A: every uni-predicted inter s-leaf at once.
+    """Phase A: every inter s-leaf of every frame at once.
 
-    carry: dict of recon buffers, level planes and source planes (updated
-    in place); ib_slots: (B, 13) int32 numpy rows from make_slots_split,
-    whose padded rows (x = y = 2^20) are dropped here on the host; refs:
-    the padded (y, cb, cr) reference planes."""
+    carry: dict of (F, ...) recon buffers, level planes and source planes
+    (updated in place); ib_slots: (B, 14) int32 numpy rows of
+    make_slots_split plus the frame index in column 13, whose padded rows
+    (x = y = 2^20) are dropped here on the host; refs: the padded (l0 y,
+    cb, cr, l1 y, cb, cr) reference planes, each an (F, Hp, Wp) stack.
+    Column 6 picks L0, L1 or their rounded average (BCW's equal weight:
+    the slice has no BCW)."""
     rows = ib_slots[ib_slots[:, 0] < (1 << 20)]
     if rows.shape[0] == 0:
         return
-    if (rows[:, 6] != 0).any():
-        raise NotImplementedError("bi-prediction is not in this slice")
+    any_l1 = bool((rows[:, 6] != 0).any())
     slots = torch.as_tensor(np.ascontiguousarray(rows),
                             device=carry["by"].device)
     cs = s // 2
-    x, y = slots[:, 0], slots[:, 1]
-    mvx, mvy = slots[:, 2], slots[:, 3]
-    pred_y = mc.mc_luma_block(refs[0], x, y, s, mvx, mvy, bd)
-    pred_cb = mc.mc_chroma_block(refs[1], x // 2, y // 2, cs, mvx, mvy, bd)
-    pred_cr = mc.mc_chroma_block(refs[2], x // 2, y // 2, cs, mvx, mvy, bd)
-    ry, lvy = _component(carry["sy"], pred_y, x, y, s, s, qp, bd, encode,
+    x, y, f = slots[:, 0], slots[:, 1], slots[:, 13]
+    d = slots[:, 6, None, None]
+    wv = BCW_W[BCW_DEFAULT]
+    mx = (1 << bd) - 1
+
+    def pred(ref0, ref1, px, py, sz, luma):
+        fn = mc.mc_luma_block if luma else mc.mc_chroma_block
+        p0 = fn(ref0, px, py, sz, slots[:, 2], slots[:, 3], bd, f=f)
+        if not any_l1:
+            return p0
+        p1 = fn(ref1, px, py, sz, slots[:, 4], slots[:, 5], bd, f=f)
+        avg = ((wv * p0 + (8 - wv) * p1 + 4) >> 3).clamp(0, mx)
+        return torch.where(d == 0, p0, torch.where(d == 1, p1, avg))
+
+    pred_y = pred(refs[0], refs[3], x, y, s, True)
+    pred_cb = pred(refs[1], refs[4], x // 2, y // 2, cs, False)
+    pred_cr = pred(refs[2], refs[5], x // 2, y // 2, cs, False)
+    ry, lvy = _component(carry["sy"], pred_y, f, x, y, s, s, qp, bd, encode,
                          rdoq, lam_rd)
-    rcb, lvcb = _component(carry["scb"], pred_cb, x // 2, y // 2, cs, cs, qp,
-                           bd, encode, rdoq, lam_rd)
-    rcr, lvcr = _component(carry["scr"], pred_cr, x // 2, y // 2, cs, cs, qp,
-                           bd, encode, rdoq, lam_rd)
-    _scatter(carry["by"], ry, x, y, s, s, 1)
-    _scatter(carry["bcb"], rcb, x // 2, y // 2, cs, cs, 1)
-    _scatter(carry["bcr"], rcr, x // 2, y // 2, cs, cs, 1)
+    rcb, lvcb = _component(carry["scb"], pred_cb, f, x // 2, y // 2, cs, cs,
+                           qp, bd, encode, rdoq, lam_rd)
+    rcr, lvcr = _component(carry["scr"], pred_cr, f, x // 2, y // 2, cs, cs,
+                           qp, bd, encode, rdoq, lam_rd)
+    _scatter(carry["by"], ry, f, x, y, s, s, 1)
+    _scatter(carry["bcb"], rcb, f, x // 2, y // 2, cs, cs, 1)
+    _scatter(carry["bcr"], rcr, f, x // 2, y // 2, cs, cs, 1)
     if encode:
-        _scatter(carry["ly"], lvy, x, y, s, s, 0)
-        _scatter(carry["lcb"], lvcb, x // 2, y // 2, cs, cs, 0)
-        _scatter(carry["lcr"], lvcr, x // 2, y // 2, cs, cs, 0)
+        _scatter(carry["ly"], lvy, f, x, y, s, s, 0)
+        _scatter(carry["lcb"], lvcb, f, x // 2, y // 2, cs, cs, 0)
+        _scatter(carry["lcr"], lvcr, f, x // 2, y // 2, cs, cs, 0)
 
 
 def _slab_strides(frame_h: int):

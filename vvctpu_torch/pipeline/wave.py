@@ -5,7 +5,11 @@ every leaf that produces a reference sample available to it (z-order
 availability).  The device then runs one batch per (level, leaf class)
 and scatters the block results into the recon buffers.  Phase A (every
 inter leaf, which depends on nothing in the current frame) runs first.
-One engine: an eager loop over the schedule, default toolset.
+One engine: an eager loop over the schedule, default toolset.  It runs F
+mutually independent frames at once (one temporal layer's B frames): the
+buffers carry a leading frame axis, every row its frame index, and the
+frames' schedules merge by (level, class), so one launch sequence covers
+a level of every frame.
 """
 from __future__ import annotations
 
@@ -134,48 +138,66 @@ def _levels_c(slots: np.ndarray, frame_h: int, frame_w: int):
 
 
 def build_schedule(slots: np.ndarray, frame_h: int, frame_w: int):
-    """Order phase-B leaves into dependency waves.
+    """Order one frame's phase-B leaves into dependency waves.
 
-    Returns [(cls, rows)] in execution order: cls = (kind, w, h, d), rows an
+    Returns [(cls, rows)] in execution order: cls = (kind, w, h, d), rows a
     (k, 16) int32 array of the slot rows in that batch.  Leaves in one batch
     are mutually independent; every leaf's available reference region
     (top/left strips incl. above-right and below-left reach, plus the IBC
-    source rect) is produced by strictly earlier batches.
+    source rect) is produced by strictly earlier batches."""
+    return [(cls, rows[:, :16])
+            for cls, rows in build_schedule_batch([slots], frame_h, frame_w)]
+
+
+def build_schedule_batch(slot_list, frame_h: int, frame_w: int):
+    """build_schedule over F independent frames: each frame is levelled
+    on its own, then all rows merge by (level, class), so one batch holds
+    the leaves of that level and class of every frame.  Rows are (k, 17):
+    the slot row plus its frame index.  Batches hold at most _MAX_BATCH
+    rows per frame.
 
     Levelling runs in C (native/wave.c) with a Python fallback; grouping is
-    vectorised (stable sort by (level, class) keeps the coding-order row
-    order inside each batch, identical to the per-leaf reference loop)."""
-    lv = _levels_c(slots, frame_h, frame_w)
-    if lv is None:
-        lv = _levels_py(slots, frame_h, frame_w)
-    sel = np.nonzero(lv > 0)[0]
-    if sel.size == 0:
-        return []
+    vectorised (a stable sort by (level, class) keeps frame order, then
+    coding order, inside each batch, identical to the per-leaf reference
+    loop for one frame)."""
     W, H, _, KIND = _OPT
-    ops = slots[sel, 0]
-    ips = np.where((ops >= 1) & (ops <= 3), slots[sel, 15], 0)
-    kind = np.where(ips > 0, _KIND_RANK["isp"], KIND[ops])
-    d = np.where(ips > 0, ips, 0)
-    # combined sort key: (level, kind-rank, w, h, d); stable keeps coding
-    # order inside each group — matches sorted(batches, key=(lv, cls))
-    key = (lv[sel].astype(np.int64) << 32) | (kind.astype(np.int64) << 24) \
-        | (W[ops].astype(np.int64) << 16) | (H[ops].astype(np.int64) << 8) \
-        | d.astype(np.int64)
+    keys, rows = [], []
+    for f, slots in enumerate(slot_list):
+        slots = np.asarray(slots)
+        lv = _levels_c(slots, frame_h, frame_w)
+        if lv is None:
+            lv = _levels_py(slots, frame_h, frame_w)
+        sel = np.nonzero(lv > 0)[0]
+        ops = slots[sel, 0]
+        ips = np.where((ops >= 1) & (ops <= 3), slots[sel, 15], 0)
+        kind = np.where(ips > 0, _KIND_RANK["isp"], KIND[ops])
+        d = np.where(ips > 0, ips, 0)
+        # combined sort key: (level, kind-rank, w, h, d)
+        keys.append((lv[sel].astype(np.int64) << 32)
+                    | (kind.astype(np.int64) << 24)
+                    | (W[ops].astype(np.int64) << 16)
+                    | (H[ops].astype(np.int64) << 8) | d.astype(np.int64))
+        rows.append(np.concatenate(
+            [slots[sel], np.full((sel.size, 1), f, np.int32)], axis=1))
+    key = np.concatenate(keys)
+    if key.size == 0:
+        return []
+    rows = np.concatenate(rows).astype(np.int32)
     order = np.argsort(key, kind="stable")
-    sel_o = sel[order]
     key_o = key[order]
+    rows_o = rows[order]
     bounds = np.nonzero(np.diff(key_o))[0] + 1
     starts = np.concatenate([[0], bounds])
     ends = np.concatenate([bounds, [key_o.size]])
     inv_kind = {v: k for k, v in _KIND_RANK.items()}
+    cap = _MAX_BATCH * len(slot_list)
     out = []
     for s0, e0 in zip(starts, ends):
         k = int(key_o[s0])
         cls = (inv_kind[(k >> 24) & 0xFF], (k >> 16) & 0xFF,
                (k >> 8) & 0xFF, k & 0xFF)
-        rows = slots[sel_o[s0:e0]]
-        for c0 in range(0, rows.shape[0], _MAX_BATCH):
-            out.append((cls, rows[c0:c0 + _MAX_BATCH]))
+        for c0 in range(s0, e0, cap):
+            out.append((cls, rows_o[c0:min(c0 + cap, e0)]))
     return out
 
 
@@ -188,9 +210,9 @@ _scatter = recon._scatter
 _comp_local = recon._component
 
 
-def _chroma_leaf(bcb, bcr, scb, scr, x, y, mode_dm, *, s: int, frame_w: int,
-                 frame_h: int, n_ctu_x: int, log2_ctu: int, qp: int, bd: int,
-                 encode: bool, rdoq: bool, lam_rd: int):
+def _chroma_leaf(bcb, bcr, scb, scr, f, x, y, mode_dm, *, s: int,
+                 frame_w: int, frame_h: int, n_ctu_x: int, log2_ctu: int,
+                 qp: int, bd: int, encode: bool, rdoq: bool, lam_rd: int):
     """Chroma part of a batch of square intra leaves (DM prediction,
     separate Cb/Cr residuals).  Returns (rec_cb, lev_cb, rec_cr, lev_cr)."""
     cs = s // 2
@@ -199,48 +221,42 @@ def _chroma_leaf(bcb, bcr, scb, scr, x, y, mode_dm, *, s: int, frame_w: int,
     for buf, src in ((bcb, scb), (bcr, scr)):
         top, left = intra_pred.build_references(
             buf, cx2, cy2, s=cs, is_luma=False, frame_w=frame_w // 2,
-            frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd)
+            frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd,
+            f=f)
         pred = intra_pred.predict(top, left, mode_dm, s=cs, is_luma=False,
                                   bd=bd)
-        out += list(_comp_local(src, pred, cx2, cy2, cs, cs, qp, bd, encode,
-                                rdoq, lam_rd))
+        out += list(_comp_local(src, pred, f, cx2, cy2, cs, cs, qp, bd,
+                                encode, rdoq, lam_rd))
     return tuple(out)
 
 
 def _intra_batch(carry, rows, qp: int, lam_rd: int, *, s: int, frame_w: int,
                  frame_h: int, log2_ctu: int, bd: int, encode: bool,
                  rdoq: bool):
-    """One dependency level's square intra s-leaves: predict, code and
-    reconstruct luma and chroma, scatter into the carry (in place)."""
-    x, y, mode = rows[:, 1], rows[:, 2], rows[:, 3]
+    """One dependency level's square intra s-leaves (of any frames):
+    predict, code and reconstruct luma and chroma, scatter into the carry
+    (in place).  rows: (k, 17) device rows, frame index in column 16."""
+    x, y, mode, f = rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 16]
     n_ctu_x = frame_w >> log2_ctu
     top, left = intra_pred.build_references(
         carry["by"], x, y, s=s, is_luma=True, frame_w=frame_w,
-        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd)
+        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd, f=f)
     pred_y = intra_pred.predict(top, left, mode, s=s, is_luma=True, bd=bd)
-    rec_y, lev_y = _comp_local(carry["sy"], pred_y, x, y, s, s, qp, bd,
+    rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
                                encode, rdoq, lam_rd)
     rcb, lev_cb, rcr, lev_cr = _chroma_leaf(
-        carry["bcb"], carry["bcr"], carry["scb"], carry["scr"], x, y, mode,
-        s=s, frame_w=frame_w, frame_h=frame_h, n_ctu_x=n_ctu_x,
+        carry["bcb"], carry["bcr"], carry["scb"], carry["scr"], f, x, y,
+        mode, s=s, frame_w=frame_w, frame_h=frame_h, n_ctu_x=n_ctu_x,
         log2_ctu=log2_ctu, qp=qp, bd=bd, encode=encode, rdoq=rdoq,
         lam_rd=lam_rd)
     cs = s // 2
-    _scatter(carry["by"], rec_y, x, y, s, s, 1)
-    _scatter(carry["bcb"], rcb, x // 2, y // 2, cs, cs, 1)
-    _scatter(carry["bcr"], rcr, x // 2, y // 2, cs, cs, 1)
+    _scatter(carry["by"], rec_y, f, x, y, s, s, 1)
+    _scatter(carry["bcb"], rcb, f, x // 2, y // 2, cs, cs, 1)
+    _scatter(carry["bcr"], rcr, f, x // 2, y // 2, cs, cs, 1)
     if encode:
-        _scatter(carry["ly"], lev_y, x, y, s, s, 0)
-        _scatter(carry["lcb"], lev_cb, x // 2, y // 2, cs, cs, 0)
-        _scatter(carry["lcr"], lev_cr, x // 2, y // 2, cs, cs, 0)
-
-
-def _phase_a(carry, inters, refs, qp: int, lam_rd: int, *, bd: int,
-             encode: bool, rdoq: bool):
-    """All phase-A inter passes (sizes 8, 16, 32)."""
-    for s_sz in (8, 16, 32):
-        recon._inter_batch_pass(carry, inters[s_sz], refs, s_sz, qp, bd,
-                                encode, rdoq, lam_rd)
+        _scatter(carry["ly"], lev_y, f, x, y, s, s, 0)
+        _scatter(carry["lcb"], lev_cb, f, x // 2, y // 2, cs, cs, 0)
+        _scatter(carry["lcr"], lev_cr, f, x // 2, y // 2, cs, cs, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -253,33 +269,66 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
                log2_ctu: int = 6, inter_enabled: bool = False, refs=None,
                inter=None, rdoq: bool = False, lam_rd: int = 0):
     """Reconstruct one frame: phase A, then the phase-B intra leaves level
-    by level.
+    by level (frame_wave_batch over this one frame).
 
     slots: (N, 16) int32 numpy slot table (make_slots / make_slots_split);
     planes_*: int32 device planes (source when encoding, parsed levels
-    when decoding); refs: padded (y, cb, cr) reference planes and inter:
-    {8/16/32: numpy phase-A rows} for P frames.  Returns (recon_y,
-    recon_cb, recon_cr, levels_y, levels_cb, levels_cr); the reference's
-    five 8x8-grid tool planes are all zero for the default toolset and
-    are left out."""
-    dev = planes_y.device
+    when decoding); refs: the padded (y, cb, cr) reference planes of a P
+    frame, or (l0 y, cb, cr, l1 y, cb, cr) of a B frame, and inter:
+    {8/16/32: numpy phase-A rows}.  Returns (recon_y, recon_cb, recon_cr,
+    levels_y, levels_cb, levels_cr); the reference's five 8x8-grid tool
+    planes are all zero for the default toolset and are left out."""
+    fr = dict(slots=slots, py=planes_y, pcb=planes_cb, pcr=planes_cr)
+    if inter_enabled:
+        fr.update(refs=refs, inter=inter)
+    return frame_wave_batch([fr], frame_w=frame_w, frame_h=frame_h, qp=qp,
+                            bd=bd, encode=encode, log2_ctu=log2_ctu,
+                            rdoq=rdoq, lam_rd=lam_rd)[0]
+
+
+def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
+                     bd: int, encode: bool, log2_ctu: int = 6,
+                     rdoq: bool = False, lam_rd: int = 0):
+    """Reconstruct F mutually independent frames of one slice type and QP
+    in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
+
+    frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter]} as
+    frame_wave takes them; the planes are int32 tensors on the device all
+    frames share.  Returns a list of per-frame 6-tuples, each equal to
+    frame_wave's for that frame alone."""
+    F = len(frames_in)
+    dev = frames_in[0]["py"].device
     h2, w2 = frame_h // 2, frame_w // 2
 
     def z(h, w):
-        return torch.zeros((h, w), dtype=torch.int32, device=dev)
+        return torch.zeros((F, h, w), dtype=torch.int32, device=dev)
+
+    def stack(key):
+        return torch.stack([torch.as_tensor(fr[key], device=dev)
+                            for fr in frames_in]).to(torch.int32)
 
     carry = dict(
         by=z(frame_h + 1 + MARGIN, frame_w + 1 + MARGIN),
         bcb=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN),
         bcr=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN),
         ly=z(frame_h, frame_w), lcb=z(h2, w2), lcr=z(h2, w2),
-        sy=planes_y.to(torch.int32), scb=planes_cb.to(torch.int32),
-        scr=planes_cr.to(torch.int32))
-    if inter_enabled:
-        _phase_a(carry, inter, refs, qp, lam_rd, bd=bd, encode=encode,
-                 rdoq=rdoq)
+        sy=stack("py"), scb=stack("pcb"), scr=stack("pcr"))
+    if frames_in[0].get("refs") is not None:
+        # a P frame's three planes serve both lists
+        six = [tuple(fr["refs"]) * (2 if len(fr["refs"]) == 3 else 1)
+               for fr in frames_in]
+        refs = tuple(torch.stack([r[i] for r in six]) for i in range(6))
+        for s_sz in (8, 16, 32):
+            rows = np.concatenate(
+                [np.concatenate([fr["inter"][s_sz],
+                                 np.full((fr["inter"][s_sz].shape[0], 1), f,
+                                         np.int32)], axis=1)
+                 for f, fr in enumerate(frames_in)])
+            recon._inter_batch_pass(carry, rows, refs, s_sz, qp, bd, encode,
+                                    rdoq, lam_rd)
 
-    sched = build_schedule(np.asarray(slots), frame_h, frame_w)
+    sched = build_schedule_batch([fr["slots"] for fr in frames_in], frame_h,
+                                 frame_w)
     if sched:
         # one upload for the whole schedule: an upload from pageable host
         # memory waits for the stream, so per-batch uploads would
@@ -295,6 +344,8 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
                      log2_ctu=log2_ctu, bd=bd, encode=encode, rdoq=rdoq)
         o += rows.shape[0]
 
-    return (carry["by"][1:frame_h + 1, 1:frame_w + 1],
-            carry["bcb"][1:h2 + 1, 1:w2 + 1], carry["bcr"][1:h2 + 1, 1:w2 + 1],
-            carry["ly"], carry["lcb"], carry["lcr"])
+    return [(carry["by"][f, 1:frame_h + 1, 1:frame_w + 1],
+             carry["bcb"][f, 1:h2 + 1, 1:w2 + 1],
+             carry["bcr"][f, 1:h2 + 1, 1:w2 + 1],
+             carry["ly"][f], carry["lcb"][f], carry["lcr"][f])
+            for f in range(F)]
