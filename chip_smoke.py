@@ -6,7 +6,8 @@ Phases, in order; any failure exits non-zero:
 
 1. build the hand-written kernels and hold each against its plain PyTorch
    twin on the card at the main path's shapes (1088x1920 dense motion
-   search, 7 and 11 keys), with timings;
+   search, 7 and 11 keys, noisy, flat and wrapping-lam inputs), with the
+   compiler's register report, the kernel's dy split and timings;
 2. exactness at a small size: a 3-frame 64x96 IPPP clip encoded on the
    card must equal the copied spec model's bitstream, decode on the card
    with hashes verified, and decode in the spec model; the transforms on
@@ -40,10 +41,13 @@ import time
 import numpy as np
 import torch
 
-# int32 ALU peak of one H100 SXM: 64 INT32 lanes per SM (a quarter of the
-# 67 TFLOP/s float32 rate, which counts 128 lanes and a fused
-# multiply-add as two operations)
+# peaks of one H100 SXM outside the tensor cores, from the 67 TFLOP/s
+# float32 rate (128 lanes per SM, a fused multiply-add counted as two
+# operations) and the results per SM per clock of compute capability 9.0:
+# 64 int32 adds, 128 float32 adds, 256 float16 adds (packed half2)
 INT32_OPS_PER_S = 67e12 / 4
+FP32_ADDS_PER_S = 67e12 / 2
+FP16_ADDS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -90,24 +94,37 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def me_sad_bound_ms(H: int, W: int, keys):
+def me_sad_bound_ms(H: int, W: int, keys, max_sample: int):
     """(least time in ms, what bounds it) for the dense search on this
-    card: the larger of the int32 operations over the int32 peak (per
-    offset: subtract, absolute value and accumulate per pixel; per key
-    block the granule adds, the cost (shift, multiply, add) and the
-    compare-select) and the bytes (both planes read once, the outputs
-    written once) over the memory rate."""
+    card with samples up to ``max_sample``: the larger of the operations'
+    time and the bytes (both planes read once, the outputs written once)
+    over the memory rate.  Per pixel-offset a difference, an absolute
+    value and an accumulate, on the fastest pipe that is exact for these
+    samples: three int32 operations; two float32 adds (the absolute value
+    is an operand modifier; exact for samples below 2^16); or, while an
+    8-column row partial stays within 2048 (8-bit samples), two float16
+    adds, with each such partial converted to float32 and summed there
+    (two float32 operations per 8 pixel-offsets).  Per key block the
+    granule adds, the cost (shift, multiply, add) and the compare-select
+    on the int32 pipe, which runs beside the float ones."""
     from vvctpu_torch.kernels import me_sad as kme
     n_off = (2 * 16 + 1) ** 2
-    ops_off = 3 * H * W
+    key_ops = 0
     out_words = 0
     for k in keys:
         bh, bw, *_ = kme.KEY_GEOM[k]
         nby, nbx = kme._grid(k, H, W)
         blocks = nby * nbx
-        ops_off += blocks * ((bh // 8) * (bw // 8) - 1) + 6 * blocks
+        key_ops += blocks * ((bh // 8) * (bw // 8) - 1) + 6 * blocks
         out_words += 3 * blocks
-    ops_ms = n_off * ops_off / INT32_OPS_PER_S * 1e3
+    pix = n_off * H * W
+    key_s = n_off * key_ops / INT32_OPS_PER_S
+    pipes = [3 * pix / INT32_OPS_PER_S + key_s,
+             max(2 * pix / FP32_ADDS_PER_S, key_s)]
+    if 8 * max_sample <= 2048:
+        pipes.append(max(pix * (2 / FP16_ADDS_PER_S
+                                + 2 / 8 / FP32_ADDS_PER_S), key_s))
+    ops_ms = min(pipes) * 1e3
     nbytes = 4 * (H * W + (H + 32) * (W + 32) + out_words)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     if ops_ms >= bytes_ms:
@@ -122,36 +139,49 @@ def phase_kernels(dev):
     log = kme.build(verbose=True)
     print(f"[1] me_sad built in {time.time() - t0:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling", "registers", "spill")):
             print(f"[1]   {line.strip()}")
     H, W = 1088, 1920
     rng = np.random.default_rng(1)
     orig = rng.integers(0, 256, (H, W)).astype(np.int32)
     ref = (np.roll(orig, (3, -5), (0, 1))
            + rng.integers(-6, 7, (H, W))).clip(0, 255).astype(np.int32)
-    go = torch.as_tensor(orig, device=dev)
-    gr = torch.as_tensor(np.pad(ref, 16, mode="edge"), device=dev)
     lam = lambda_satd_fp(32)
+    flat = np.full((H, W), 77, np.int32)
+    # noisy motion; a flat frame, where every offset ties and only the
+    # row-major order decides; a lam whose lam * bits wraps int32
+    cases = {"noisy": (orig, ref, lam), "flat": (flat, flat, lam),
+             "wrap": (orig, ref, 2 ** 27)}
+    planes = {k: (torch.as_tensor(o, device=dev),
+                  torch.as_tensor(np.pad(r, 16, mode="edge"), device=dev),
+                  la) for k, (o, r, la) in cases.items()}
+    go, gr, _ = planes["noisy"]
+    max_sample = int(max(orig.max(), ref.max()))   # of the timed inputs
+    print(f"[1] me_sad dy split: {kme.SPLIT} warps per 32x32 region "
+          "(csrc/me_sad.cu SPLIT)")
     rows = {}
     for tt in (False, True):
-        got = kme.me_sad(go, gr, lam, tt=tt)
-        want = kme.me_sad_reference(go, gr, lam, tt=tt)
-        torch.cuda.synchronize()
-        err = max(int((a - b).abs().max()) for g, w_ in zip(got, want)
-                  for a, b in zip(g, w_))
-        if err != 0:
-            raise AssertionError(f"me_sad differs from its twin (tt={tt}): "
-                                 f"max abs err {err}")
+        keys = kme.KEYS[:11 if tt else 7]
+        err = 0
+        for kind, (o, r, la) in planes.items():
+            want = kme.me_sad_reference(o, r, la, tt=tt)
+            got = kme.me_sad(o, r, la, tt=tt)
+            torch.cuda.synchronize()
+            e = max(int((a - b).abs().max()) for g, w_ in zip(got, want)
+                    for a, b in zip(g, w_))
+            if e != 0:
+                raise AssertionError(f"me_sad differs from its twin ({kind}, "
+                                     f"tt={tt}): max abs err {e}")
+            err = max(err, e)
         ms = cuda_ms(lambda: kme.me_sad(go, gr, lam, tt=tt), 20)
         plain = cuda_ms(lambda: kme.me_sad_reference(go, gr, lam, tt=tt), 3)
-        keys = kme.KEYS[:11 if tt else 7]
-        bound, by = me_sad_bound_ms(H, W, keys)
+        bound, by = me_sad_bound_ms(H, W, keys, max_sample)
         rows[tt] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
                         bound_ms=bound, bound_by=by)
         print(f"[1] me_sad {H}x{W} keys={len(keys)}: equal to twin "
-              f"(tolerance 0, max abs err {err}); "
-              f"kernel {ms:.3f} ms, twin {plain:.1f} ms, "
-              f"bound {rows[tt]['bound_ms']:.3f} ms, "
+              f"(tolerance 0, max abs err {err}) on {', '.join(planes)}")
+        print(f"[1]   kernel {ms:.4f} ms; twin {plain:.1f} ms; bound "
+              f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f} % of it; "
               f"launches so far {kme.launches}")
     return rows[False]
 

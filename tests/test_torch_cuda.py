@@ -30,22 +30,35 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("kind", ["noisy", "flat"])
-@pytest.mark.parametrize("tt", [False, True])
-def test_me_sad_kernel_equals_twin(cuda, tt, kind):
+def _me_case(kind, H, W):
+    """(orig, edge-padded ref, lam): noisy motion, a flat frame where every
+    offset ties, a lam whose lam * bits wraps int32, and motion into the
+    edge-clamped border of the padded reference."""
     rng = np.random.default_rng(5)
+    lam = 2 ** 27 if kind == "wrap" else 211
     if kind == "flat":
-        orig = np.full((128, 192), 77, np.int32)
-        ref = np.full((160, 224), 77, np.int32)
+        orig = np.full((H, W), 77, np.int32)
+        ref = orig.copy()
     else:
-        orig = rng.integers(0, 256, (128, 192)).astype(np.int32)
-        ref = np.pad(np.roll(orig, (2, 3), (0, 1)), 16, mode="edge")
+        base = rng.integers(0, 256, (H + 40, W + 40)).astype(np.int32)
+        ref = base[16:16 + H, 16:16 + W]
+        orig = base[2:2 + H, 30:30 + W] if kind == "border" else \
+            (base[18:18 + H, 13:13 + W] + rng.integers(-6, 7, (H, W))
+             ).clip(0, 255).astype(np.int32)
+    return orig, np.pad(ref, 16, mode="edge").astype(np.int32), lam
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (128, 192), (1088, 1920)])
+@pytest.mark.parametrize("kind", ["noisy", "flat", "wrap", "border"])
+@pytest.mark.parametrize("tt", [False, True])
+def test_me_sad_kernel_equals_twin(cuda, tt, kind, shape):
+    orig, ref, lam = _me_case(kind, *shape)
     go = torch.as_tensor(orig, device=cuda)
-    gr = torch.as_tensor(ref.astype(np.int32), device=cuda)
+    gr = torch.as_tensor(ref, device=cuda)
     before = kme.launches
-    got = kme.me_sad(go, gr, 211, tt=tt)
+    got = kme.me_sad(go, gr, lam, tt=tt)
     assert kme.launches == before + 1
-    want = kme.me_sad_reference(go, gr, 211, tt=tt)
+    want = kme.me_sad_reference(go, gr, lam, tt=tt)
     for (a, b), (c, d) in zip(got, want):
         assert torch.equal(a, c) and torch.equal(b, d)
 

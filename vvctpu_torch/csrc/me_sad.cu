@@ -1,41 +1,64 @@
 // Dense +-16 integer motion search for Hopper (sm_90a).
 //
-// Replaces the TPU kernel vvctpu/kernels/me_pallas.py me_sad_pallas: for
-// every offset (dy, dx) in [-16, 16]^2, taken in row-major order, the SAD
-// of the original frame against the shifted reference is summed per 8x8
-// granule, then per key geometry (squares 8/16/32, the four BT rectangles
-// and, with TT, the 32x8 / 8x32 keys and the two TT middle stripes).  The
-// cost per key block is (SAD << 8) + lam * (2 + 2*bitlen(dx) + 2*bitlen(dy))
-// in wrapping int32 arithmetic, and a running strict-less minimum keeps the
-// first offset that reaches the smallest cost.
+// Replaces the TPU kernel vvctpu/kernels/me_pallas.py:77 me_sad_pallas:
+// for every offset (dy, dx) in [-16, 16]^2, taken in row-major order, the
+// SAD of the original frame against the shifted reference is summed per
+// 8x8 granule, then per key geometry (squares 8/16/32, the four BT
+// rectangles and, with TT, the 32x8 / 8x32 keys and the two TT middle
+// stripes).  The cost per key block is
+// (SAD << 8) + lam * (2 + 2*bitlen(dx) + 2*bitlen(dy)) in wrapping int32
+// arithmetic; the first offset in row-major order that reaches the
+// smallest cost wins.
 //
-// Design: one thread block per 64x64 tile of the frame.  Every key block
-// (the TT stripes included) lies inside one 64x64 tile, so a block needs
-// only its tile and the (64 + 32)^2 reference window around it, which it
-// keeps in shared memory.  Each of the 256 threads holds 16 original
-// pixels (two rows of one 8x8 granule) in registers; per offset it sums
-// their absolute differences, four neighbouring lanes reduce to the
-// granule SAD, and the 64 granule SADs go to shared memory.  After one
-// barrier each thread that owns a key block (at most 204 per tile) sums
-// its granules and updates its running (cost, dx, dy).  Offsets are walked
-// in the reference order inside the block, so ties break exactly as in
-// the reference.  The 64 granule SADs are double-buffered, so one barrier
-// per offset is enough.
+// What bounds it on this card: arithmetic issue.  A 1080p call takes
+// 2.3 G absolute differences against about 18 MB of memory traffic, so
+// the question is how few instructions each pixel-offset costs and how
+// little else runs beside them.  The design:
 //
-// Bound: int32 ALU work (about 2.3 G absolute differences per 1080p
-// reference, each a load, a subtract, an absolute value and an add);
-// memory traffic is about 20 MB per call.
+// - Warp-local 32x32 regions.  Every key block of all 11 keys (the TT
+//   stripes included) lies inside one aligned 32x32 region, so one warp
+//   owns one region: 16 granules, 41 key blocks (51 with TT).  Lane
+//   (gy, gx, h) holds 4 rows x 8 columns of granule (gy, gx) in
+//   registers; granule and key sums are built with __shfl_xor_sync, and
+//   each lane keeps the running minimum of the one or two key blocks it
+//   owns (c_own).  No barrier runs inside the offset loop.
+// - The differences run on the FP32 pipe (128 lanes per SM against 64 for
+//   INT32): o - r and acc + |d| are one FADD each, the absolute value a
+//   free operand modifier.  This is exact because samples are integers
+//   below 2^16, so every lane's sum (32 pixels) stays below 2^24; the
+//   granule sums go to int32 once per offset and all key arithmetic stays
+//   int32.
+// - Reference reuse across dx.  For one dy the 33 dx steps are fully
+//   unrolled; each lane keeps, per row, a ring of 8 reference values and
+//   loads one new column per row per step (4 shared loads per 32
+//   pixel-offsets).
+// - Conflict-free shared memory.  The tile's 96x96 reference window is
+//   stored as float at row stride 104 with row y shifted by (y / 4) % 8
+//   words: the 32 lanes of a load (8 row groups x 4 granule columns) then
+//   hit 32 distinct banks.
+// - An order-free exact minimum.  The 33 dy rows are split across
+//   SPLIT = 2 warps per region (256 threads per block, two blocks per SM:
+//   16 warps, 128 registers a thread).  Inside a warp the rows run in
+//   order with a strict-less minimum; the warps' minima merge through
+//   atomicMin on the 64-bit key
+//   ((cost ^ 0x80000000) << 32) | (1 + (dy + 16) * 33 + dx + 16), which
+//   orders by signed cost, then by row-major offset.  Index 0 is the
+//   initial state (INT_MAX, mv (0, 0)), which an offset that costs exactly
+//   INT_MAX does not replace, as in the reference.
 #include <cuda_runtime.h>
 #include <limits.h>
 
 namespace {
 
-constexpr int R = 16;                 // ME_RANGE
+constexpr int R = 16;                  // ME_RANGE
+constexpr int NOFF = 2 * R + 1;        // 33 offsets per axis
 constexpr int TILE = 64;
-constexpr int WIN = TILE + 2 * R;     // 96: reference window side
-constexpr int WSTRIDE = WIN + 1;      // padded row stride (bank spread)
-constexpr int NTHREADS = 256;
+constexpr int WIN = TILE + 2 * R;      // 96: reference window side
+constexpr int WSTRIDE = 104;           // window row stride (floats)
+constexpr int SPLIT = 2;               // warps per 32x32 region
+constexpr int NTHREADS = 32 * 4 * SPLIT;
 constexpr int MAX_KEYS = 11;
+constexpr unsigned FULL = 0xffffffffu;
 
 // key geometry in pixels: block h, block w, stride y, stride x, offset y,
 // offset x -- the order of vvctpu_torch.kernels.me_sad.KEYS
@@ -53,118 +76,201 @@ __constant__ int c_geom[MAX_KEYS][6] = {
     {32, 16, 32, 32, 0, 8},    // ttv_mid
 };
 
+// The key block each lane owns in slot 0 and slot 1 (key index, -1 for
+// none).  Lane = 8 * gy + 2 * gx + h for granule (gy, gx) of the region and
+// row half h.  A lane owns a block that contains its granule, and the
+// shuffle sums below leave that block's SAD in the lane.
+__constant__ signed char c_own[2][32] = {
+    // slot 0: 8x8 (h = 0), 16x8 (h = 1, gx even), 8x32 / tth_mid /
+    // ttv_mid (h = 1, gx odd)
+    {0, 3, 0, 8, 0, 3, 0, 8,      // gy 0
+     0, 3, 0, 9, 0, 3, 0, -1,     // gy 1
+     0, 3, 0, 10, 0, 3, 0, -1,    // gy 2
+     0, 3, 0, -1, 0, 3, 0, -1},   // gy 3
+    // slot 1: 8x16 (h = 0, gy even), 16 and 32x16 (h = 0, gy odd),
+    // 16x32 / 32 / 32x8 / 8x32 (h = 1)
+    {4, 6, 4, 2, 4, 6, 4, 7,      // gy 0
+     1, 8, 5, -1, 1, 8, -1, 7,    // gy 1
+     4, -1, 4, -1, 4, -1, 4, 7,   // gy 2
+     1, -1, 5, -1, 1, -1, -1, 7}, // gy 3
+};
+
+// bit length of |v| for |v| <= R; folds to a constant for a constant v
 __device__ __forceinline__ int bitlen(int v) {
-  const unsigned a = static_cast<unsigned>(v < 0 ? -v : v);
-  return a ? 32 - __clz(a) : 0;
+  const int a = v < 0 ? -v : v;
+  return a >= 16 ? 5 : a >= 8 ? 4 : a >= 4 ? 3 : a >= 2 ? 2 : a;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// the value of key `k` among the sums a lane holds; MASK lists the keys
+// that can occur in the slot, so the select chain stays short
+template <int MASK>
+__device__ __forceinline__ int pick(int k, const int (&v)[MAX_KEYS]) {
+  int out = 0;
+#pragma unroll
+  for (int j = 0; j < MAX_KEYS; ++j)
+    if ((MASK >> j) & 1) out = (k == j) ? v[j] : out;
+  return out;
+}
+
+__device__ __forceinline__ int sw(int y) {  // window row start (floats)
+  return y * WSTRIDE + ((y >> 2) & 7);
+}
+
+template <int NKEYS>
+__global__ void __launch_bounds__(NTHREADS, 2)
 me_sad_kernel(const int* __restrict__ orig, const int* __restrict__ refp,
-              int H, int W, int lam, int nkeys, int* __restrict__ cost_out,
+              int H, int W, int lam, int* __restrict__ cost_out,
               int* __restrict__ dx_out, int* __restrict__ dy_out) {
-  __shared__ int s_ref[WIN * WSTRIDE];
-  __shared__ int s_sad[2][64];
+  __shared__ float s_ref[WIN * WSTRIDE];
+  __shared__ unsigned long long s_best[4][2][32];
   const int tid = threadIdx.x;
-  const int ty0 = blockIdx.y * TILE;
-  const int tx0 = blockIdx.x * TILE;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int region = warp & 3, share = warp >> 2;
+  const int ty0 = blockIdx.y * TILE, tx0 = blockIdx.x * TILE;
   const int rw = W + 2 * R;
 
   for (int i = tid; i < WIN * WIN; i += NTHREADS) {
-    const int r = i / WIN, c = i - (i / WIN) * WIN;
-    s_ref[r * WSTRIDE + c] = refp[(size_t)(ty0 + r) * rw + tx0 + c];
+    const int r = i / WIN, c = i - r * WIN;
+    s_ref[sw(r) + c] =
+        static_cast<float>(refp[(size_t)(ty0 + r) * rw + tx0 + c]);
   }
+  for (int i = tid; i < 4 * 2 * 32; i += NTHREADS)
+    (&s_best[0][0][0])[i] = ~0ull;
 
-  // this thread's 16 original pixels: rows 2q, 2q+1 of granule g
-  const int g = tid >> 2, q = tid & 3;
-  const int py = (g >> 3) * 8 + 2 * q;
-  const int px = (g & 7) * 8;
-  int o[16];
+  // this lane's 32 original pixels: rows 4h..4h+3 of granule (gy, gx)
+  const int h = lane & 1, gx = (lane >> 1) & 3, gy = lane >> 3;
+  const int py = (region >> 1) * 32 + gy * 8 + h * 4;
+  const int px = (region & 1) * 32 + gx * 8;
+  float o[4][8];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      o[r * 8 + c] = orig[(size_t)(ty0 + py + r) * W + tx0 + px + c];
-
-  // the key block this thread owns, if any
-  int key = -1, kb = 0, first = 0;
-  for (int k = 0, acc = 0; k < nkeys; ++k) {
-    const int nb = (TILE / c_geom[k][2]) * (TILE / c_geom[k][3]);
-    if (key < 0 && tid < acc + nb) {
-      key = k;
-      kb = tid - acc;
-    }
-    acc += nb;
-  }
-  int gy0 = 0, gx0 = 0, gh = 0, gw = 0;
-  size_t out_idx = 0;
-  if (key >= 0) {
-    for (int k = 0; k < key; ++k)
-      first += (H / c_geom[k][2]) * (W / c_geom[k][3]);
-    const int bh = c_geom[key][0], bw = c_geom[key][1];
-    const int sy = c_geom[key][2], sx = c_geom[key][3];
-    const int cols = TILE / sx;
-    const int br = kb / cols, bc = kb - (kb / cols) * cols;
-    gy0 = (br * sy + c_geom[key][4]) >> 3;
-    gx0 = (bc * sx + c_geom[key][5]) >> 3;
-    gh = bh >> 3;
-    gw = bw >> 3;
-    const int nbx = W / sx;
-    out_idx = (size_t)first +
-              (size_t)(blockIdx.y * (TILE / sy) + br) * nbx +
-              blockIdx.x * cols + bc;
-  }
+      o[i][c] = static_cast<float>(
+          orig[(size_t)(ty0 + py + i) * W + tx0 + px + c]);
+  const int k0 = c_own[0][lane], k1 = c_own[1][lane];
   __syncthreads();
 
-  int best = INT_MAX, bdx = 0, bdy = 0;
-  int it = 0;
-  for (int dy = -R; dy <= R; ++dy) {
-    const int ybits = 2 * bitlen(dy);
-    for (int dx = -R; dx <= R; ++dx, ++it) {
-      const int* rp = s_ref + (py + dy + R) * WSTRIDE + px + dx + R;
-      int s = 0;
+  const unsigned ulam = static_cast<unsigned>(lam);
+  int best0 = INT_MAX, best1 = INT_MAX, bi0 = 0, bi1 = 0;
+  const int dy0 = share * NOFF / SPLIT, dy1 = (share + 1) * NOFF / SPLIT;
+  for (int dyi = dy0; dyi < dy1; ++dyi) {
+    // lam * (2 + 2 bitlen(dx) + 2 bitlen(dy)) for bitlen(dx) = 0..5
+    int pen[6];
+    const unsigned ybits = 2u + 2u * bitlen(dyi - R);
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+    for (int b = 0; b < 6; ++b)
+      pen[b] = static_cast<int>(ulam * (ybits + 2u * b));
+    int base[4];
+    float w[4][8];
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          s += abs(o[r * 8 + c] - rp[r * WSTRIDE + c]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      const int buf = it & 1;
-      if (q == 0) s_sad[buf][g] = s;
-      __syncthreads();
-      if (key >= 0) {
-        int sad = 0;
-        for (int a = 0; a < gh; ++a)
-          for (int b = 0; b < gw; ++b)
-            sad += s_sad[buf][(gy0 + a) * 8 + gx0 + b];
-        const unsigned bits = 2u + 2u * bitlen(dx) + ybits;
-        const int cst = static_cast<int>((static_cast<unsigned>(sad) << 8) +
-                                         static_cast<unsigned>(lam) * bits);
-        if (cst < best) {
-          best = cst;
-          bdx = dx;
-          bdy = dy;
-        }
+    for (int i = 0; i < 4; ++i) {
+      base[i] = sw(py + i + dyi) + px;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w[i][c] = s_ref[base[i] + c];
+    }
+    const int row_idx = 1 + dyi * NOFF;
+#pragma unroll
+    for (int s = 0; s < NOFF; ++s) {
+      float acc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i] = fabsf(o[i][0] - w[i][s & 7]);
+#pragma unroll
+        for (int c = 1; c < 8; ++c)
+          acc[i] += fabsf(o[i][c] - w[i][(s + c) & 7]);
+      }
+      if (s < NOFF - 1) {  // the column that step s + 1 needs
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i][s & 7] = s_ref[base[i] + s + 8];
+      }
+      const int part = __float2int_rn((acc[0] + acc[1]) + (acc[2] + acc[3]));
+      int v[MAX_KEYS];
+      v[0] = part + __shfl_xor_sync(FULL, part, 1);       // 8x8
+      v[3] = v[0] + __shfl_xor_sync(FULL, v[0], 2);       // w16 h8
+      v[4] = v[0] + __shfl_xor_sync(FULL, v[0], 8);       // w8 h16
+      v[1] = v[3] + __shfl_xor_sync(FULL, v[3], 8);       // 16x16
+      v[5] = v[1] + __shfl_xor_sync(FULL, v[1], 4);       // w32 h16
+      v[6] = v[1] + __shfl_xor_sync(FULL, v[1], 16);      // w16 h32
+      v[2] = v[5] + __shfl_xor_sync(FULL, v[5], 16);      // 32x32
+      if (NKEYS == 11) {
+        v[7] = v[3] + __shfl_xor_sync(FULL, v[3], 4);     // w32 h8
+        v[8] = v[4] + __shfl_xor_sync(FULL, v[4], 16);    // w8 h32
+        v[9] = v[7] + __shfl_xor_sync(FULL, v[7], 24);    // rows 8-23
+        v[10] = v[8] + __shfl_xor_sync(FULL, v[8], 6);    // cols 8-23
+      } else {
+        v[7] = v[8] = v[9] = v[10] = 0;
+      }
+      constexpr int MASK0 = NKEYS == 11 ? 0x709 : 0x009;
+      constexpr int MASK1 = NKEYS == 11 ? 0x1f6 : 0x076;
+      const int pn = pen[bitlen(s - R)];
+      const int c0 = static_cast<int>(
+          (static_cast<unsigned>(pick<MASK0>(k0, v)) << 8) + pn);
+      const int c1 = static_cast<int>(
+          (static_cast<unsigned>(pick<MASK1>(k1, v)) << 8) + pn);
+      if (c0 < best0) {
+        best0 = c0;
+        bi0 = row_idx + s;
+      }
+      if (c1 < best1) {
+        best1 = c1;
+        bi1 = row_idx + s;
       }
     }
   }
-  if (key >= 0) {
-    cost_out[out_idx] = best;
-    dx_out[out_idx] = bdx;
-    dy_out[out_idx] = bdy;
+
+  const auto key = [](int cst, int idx) {
+    return (static_cast<unsigned long long>(static_cast<unsigned>(cst) ^
+                                            0x80000000u) << 32) |
+           static_cast<unsigned>(idx);
+  };
+  atomicMin(&s_best[region][0][lane], key(best0, bi0));
+  atomicMin(&s_best[region][1][lane], key(best1, bi1));
+  __syncthreads();
+  if (share != 0) return;
+
+  // write the lane's blocks: per-key grids laid end to end in KEYS order
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    const int k = slot ? k1 : k0;
+    if (k < 0 || k >= NKEYS) continue;
+    size_t first = 0;
+    for (int j = 0; j < k; ++j)
+      first += (size_t)((H - c_geom[j][4] - c_geom[j][0]) / c_geom[j][2] + 1) *
+               ((W - c_geom[j][5] - c_geom[j][1]) / c_geom[j][3] + 1);
+    const int bw = c_geom[k][1], sy = c_geom[k][2], sx = c_geom[k][3];
+    const int oy = c_geom[k][4], ox = c_geom[k][5];
+    const int nbx = (W - ox - bw) / sx + 1;
+    const int by = (ty0 + (region >> 1) * 32 + gy * 8 - oy) / sy;
+    const int bx = (tx0 + (region & 1) * 32 + gx * 8 - ox) / sx;
+    const size_t at = first + (size_t)by * nbx + bx;
+    const unsigned long long b = s_best[region][slot][lane];
+    const int idx = static_cast<int>(b & 0xffffffffu);
+    cost_out[at] = static_cast<int>(static_cast<unsigned>(b >> 32) ^
+                                    0x80000000u);
+    dx_out[at] = idx ? (idx - 1) % NOFF - R : 0;
+    dy_out[at] = idx ? (idx - 1) / NOFF - R : 0;
   }
 }
 
 }  // namespace
 
 // orig: (H, W) int32; refp: (H + 32, W + 32) int32, both contiguous on the
-// device; H and W multiples of 64; nkeys 7 or 11.  Outputs: per-key block
-// grids laid end to end in KEYS order.  Returns cudaGetLastError().
+// device, samples in [0, 65535]; H and W multiples of 64; nkeys 7 or 11.
+// Outputs: per-key block grids laid end to end in KEYS order.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a bad nkeys.
 extern "C" int me_sad_launch(const int* orig, const int* refp, int H, int W,
                              int lam, int nkeys, int* cost, int* dx, int* dy,
                              void* stream) {
+  if (nkeys != 7 && nkeys != 11)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(W / TILE, H / TILE);
-  me_sad_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      orig, refp, H, W, lam, nkeys, cost, dx, dy);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nkeys == 11)
+    me_sad_kernel<11><<<grid, NTHREADS, 0, st>>>(orig, refp, H, W, lam, cost,
+                                                 dx, dy);
+  else
+    me_sad_kernel<7><<<grid, NTHREADS, 0, st>>>(orig, refp, H, W, lam, cost,
+                                                dx, dy);
   return static_cast<int>(cudaGetLastError());
 }

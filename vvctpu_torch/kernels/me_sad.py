@@ -1,12 +1,17 @@
 """Dense +-ME_RANGE integer motion search: the CUDA kernel and its plain twin.
 
-Replaces the TPU kernel ``vvctpu/kernels/me_pallas.py me_sad_pallas``
+Replaces the TPU kernel ``vvctpu/kernels/me_pallas.py:77 me_sad_pallas``
 (``pl.pallas_call`` at its line 248).  The kernel (``csrc/me_sad.cu``)
 gives each 64x64 tile one thread block with the tile's (64 + 32)^2
-reference window in shared memory and walks the 1089 offsets in
-row-major order, so ties break as in the reference.  Its bound is int32
-ALU work: about 2.3 G absolute differences per 1080p reference, against
-about 20 MB of memory traffic.
+reference window in shared memory, and each 32x32 region of the tile
+``SPLIT`` warps, each walking a contiguous share of the 33 dy rows:
+lanes hold the original pixels and a sliding window of reference columns
+in registers, differences run on the FP32 pipe (exact for
+integer samples below 2^16), key sums come from warp shuffles, and the
+warps' minima merge on the 64-bit key (cost, row-major offset index), so
+ties break as in the reference.  Its bound is arithmetic: about 2.3 G
+absolute differences per 1080p reference, against about 18 MB of memory
+traffic.
 
 ``me_sad`` launches the kernel for CUDA tensors and takes the plain
 PyTorch twin ``me_sad_reference`` only for CPU tensors.  The kernel is
@@ -47,6 +52,9 @@ KEY_GEOM = {
     "tth_mid": (16, 32, 32, 32, 8, 0),
     "ttv_mid": (32, 16, 32, 32, 0, 8),
 }
+
+# warps per 32x32 region in the kernel (csrc/me_sad.cu SPLIT)
+SPLIT = 2
 
 # kernel launches since the count was last set to 0
 launches = 0
@@ -118,8 +126,9 @@ def me_sad(orig, refp, lam: int, *, tt: bool = False):
     """Per key of ``KEYS[:11 if tt else 7]``: (cost (nby, nbx) int32,
     mv (nby, nbx, 2) int32 [dx, dy]) of the dense +-ME_RANGE search.
 
-    orig: (H, W) int32, H and W multiples of 64; refp: (H + 2R, W + 2R)
-    int32 edge-padded reference; lam: the integer lambda."""
+    orig: (H, W) int32 samples in [0, 65535], H and W multiples of 64;
+    refp: (H + 2R, W + 2R) int32 edge-padded reference; lam: the integer
+    lambda."""
     global launches
     _check(orig, refp)
     if orig.device.type == "cpu":
