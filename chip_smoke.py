@@ -26,7 +26,18 @@ Phases, in order; any failure exits non-zero:
    decoded on the card: hashes verified, encoder recon equal to decoder
    output, 331707 bits/frame and frame-0 Y-PSNR 32.21 dB (the reference
    engine's bytes on this generator), 31 me_sad launches; wall time per
-   stage and per temporal layer, and the card's busy share.
+   stage and per temporal layer, and the card's busy share;
+5. all-intra with the intra toolset (MTS, LFNST, ISP, MIP, MRL, CCLM),
+   frame-batched: (5a) a 3-frame 64x96 clip with the six tools encoded
+   on the card must equal the copied spec model's bitstream and decode
+   on the card and in the spec model, hashes verified, and the tools'
+   transforms, LFNST, MIP, CCLM and transform choice on the card must
+   equal the CPU path on worst-case inputs; (5b) bench config #1, 4
+   frames of 416x240 all-intra QP32, at 47040 bits/frame; (5c) bench
+   config #2, 3 frames of 1080p all-intra QP32 with the six tools, at
+   1444184 bits/frame (the reference engine's bytes), hashes verified,
+   recon == decoded, with stage times, fps, the card's busy share and
+   peak memory; me_sad is launched 0 times on these paths.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -280,9 +291,12 @@ def _run_full(dev, frames, cfg):
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.pipeline import encoder as tenc
     from vvctpu_torch.spec import sequence as tseq
+    from vvctpu_torch.pipeline import wave
     r = dict(enc_t={}, dec_t={}, enc_l={}, dec_l={})
     kme.launches = 0
+    wave.batches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with GpuBusy() as busy_enc:
         t0 = time.time()
         data, recons, bits = tenc.encode_sequence(
@@ -290,6 +304,7 @@ def _run_full(dev, frames, cfg):
             layer_times=r["enc_l"])
         torch.cuda.synchronize()
         r["t_enc"] = time.time() - t0
+    r["batches"] = wave.batches
     with GpuBusy() as busy_dec:
         t0 = time.time()
         out, _ = tenc.decode_sequence(data, check_hash=True, device=dev,
@@ -298,6 +313,7 @@ def _run_full(dev, frames, cfg):
         torch.cuda.synchronize()
         r["t_dec"] = time.time() - t0
     r["launches"] = kme.launches
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if not _same_planes(recons, out):
         raise AssertionError("encoder recon != decoder output")
     r["psnr"] = [float(tseq.psnr(f[0], x[0])) for f, x in zip(frames, recons)]
@@ -321,7 +337,11 @@ def _report(tag, r, n):
         b = r[f"busy_{k}"]
         print(f"{tag} card busy during {k}ode (nvidia-smi utilization.gpu "
               f"mean): {b.share:.1f} % over {b.samples} samples")
-    print(f"{tag} me_sad launches on this path: {r['launches']}")
+    print(f"{tag} phase-B leaf batches per encode and per decode: "
+          f"{r['batches']}")
+    print(f"{tag} me_sad launches on this path: {r['launches']}; peak "
+          f"device memory {r['peak_gib']:.2f} GiB "
+          "(torch.cuda.max_memory_allocated)")
 
 
 def phase_full(dev):
@@ -367,6 +387,147 @@ def phase_ra(dev):
     return r["launches"]
 
 
+AI_TOOLS = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
+                cclm=True)
+
+
+def _card_eq(tag, dev, fn, *args, **kw):
+    """fn on the card equals fn on the CPU (every output, exactly); numpy
+    arguments become tensors on each device."""
+    def run(d):
+        def conv(a):
+            return torch.as_tensor(a, device=d) \
+                if isinstance(a, np.ndarray) else a
+        out = fn(*map(conv, args), **{k: conv(v) for k, v in kw.items()})
+        return out if isinstance(out, tuple) else (out,)
+    for c, g in zip(run(torch.device("cpu")), run(dev)):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError(f"{tag}: card != CPU")
+    return 1
+
+
+def _tool_worst_cases(dev):
+    """The intra tools' integer products on the card against the CPU
+    path on worst-case inputs; returns the number of cases."""
+    from vvctpu_torch.core import rom
+    from vvctpu_torch.kernels import intra_pred as kip
+    from vvctpu_torch.kernels import transform as ktf
+    from vvctpu_torch.spec.codec import isp_kernels, isp_parts
+    rng = np.random.default_rng(5)
+    n = 0
+    ext = np.asarray([-32768, 32767], np.int32)
+    # LFNST: every set (modes 0, 2, 13, 24 and their transposes) and
+    # kernel on saturated corners; the per-row switch
+    modes = np.asarray([0, 1, 2, 13, 24, 34, 45, 56, 66] * 4, np.int32)
+    coef = rng.choice(ext, (len(modes), 8, 8)).astype(np.int32)
+    coef[0], coef[1] = 32767, -32768
+    for k in (0, 1):
+        n += _card_eq(f"fwd_lfnst k={k}", dev, ktf.fwd_lfnst, coef, k, modes)
+        n += _card_eq(f"inv_lfnst k={k}", dev, ktf.inv_lfnst, coef, k, modes)
+    n += _card_eq("inv_lfnst_switch", dev, ktf.inv_lfnst_switch, coef,
+                  np.arange(len(modes), dtype=np.int32) % 3, modes)
+    # per-row MTS inverse kernels and the ISP stripe pairs
+    for s in (4, 8, 16, 32):
+        c = rng.choice(ext, (20, s, s)).astype(np.int32)
+        n += _card_eq(f"inverse_transform_rows {s}", dev,
+                      ktf.inverse_transform_rows, c, s,
+                      np.arange(20, dtype=np.int32) % 5)
+    for s in (8, 16, 32):
+        for d in (1, 2):
+            _, _, w, h = isp_parts(s, d)[0]
+            kh, kv = isp_kernels(w, h)
+            r = rng.choice([-255, 255], (16, h, w)).astype(np.int32)
+            c = rng.choice(ext, (16, h, w)).astype(np.int32)
+            n += _card_eq(f"isp fwd {w}x{h}", dev, ktf.forward_transform, r, h,
+                          w, kh, kv)
+            n += _card_eq(f"isp inv {w}x{h}", dev, ktf.inverse_transform, c, h,
+                          w, kh, kv)
+    # the transform choice: noise, saturation and all-zero ties
+    for s in (8, 16, 32):
+        r = rng.integers(-60, 61, (24, s, s)).astype(np.int32)
+        r[0], r[1], r[2], r[3] = 0, 255, -255, 1
+        md = rng.integers(0, 67, 24).astype(np.int32)
+        allow = np.arange(24) % 3 > 0
+        n += _card_eq(f"choose_tx {s}", dev, ktf.choose_tx, r, s, 32, 347, md,
+                      8, mts=True, lfnst=True, rdoq=True, allow=allow)
+    # MIP on saturated boundaries, every id
+    for s in (8, 16, 32):
+        top = rng.choice([0, 255], (16, 2 * s + 1)).astype(np.int32)
+        left = rng.choice([0, 255], (16, 2 * s + 1)).astype(np.int32)
+        n += _card_eq(f"mip {s}", dev, kip.mip_predict, top, left,
+                      np.arange(16, dtype=np.int32), s=s)
+    # CCLM over every leaf of a 128x128 frame (edges, flat and steep)
+    h = w = 128
+    by = np.zeros((1, h + 1 + kip.MARGIN, w + 1 + kip.MARGIN), np.int32)
+    by[0, 1:h + 1, 1:w + 1] = rng.integers(0, 256, (h, w))
+    by[0, 1:40, 1:40] = 90
+    bc = np.zeros((1, h // 2 + 1 + kip.MARGIN, w // 2 + 1 + kip.MARGIN),
+                  np.int32)
+    bc[0, 1:h // 2 + 1, 1:w // 2 + 1] = rng.integers(0, 256, (h // 2,
+                                                              w // 2))
+    for s in (8, 16, 32):
+        pts = [(x, y) for y in range(0, h, s) for x in range(0, w, s)]
+        recy = rng.integers(0, 256, (len(pts), s, s)).astype(np.int32)
+        cx = np.asarray([p[0] // 2 for p in pts], np.int32)
+        cy = np.asarray([p[1] // 2 for p in pts], np.int32)
+        n += _card_eq(f"cclm {s}", dev, kip.cclm_predict_local, by, bc,
+                      recy, cx, cy, cs=s // 2, n_ctu_x=2,
+                      f=np.zeros(len(pts), np.int32))
+    return n
+
+
+def phase_ai(dev):
+    """Phase 5: all-intra with the intra toolset; returns me_sad's
+    launches on the two full-size paths (0 expected)."""
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import sequence as tseq
+    frames = synth_frames(3, 64, 96, seed=2)
+    cfg = tseq.EncoderConfig(qp=32, **AI_TOOLS)
+    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev)
+    decs = []
+    sdata, _, _ = tseq.encode_sequence(frames, cfg, decisions_out=decs)
+    if data != sdata:
+        raise AssertionError("64x96 AI six tools: card bitstream != spec "
+                             "model's")
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
+    sout, _ = tseq.decode_sequence(data, check_hash=True)
+    if not _same_planes(recons, out, sout):
+        raise AssertionError("64x96 AI six tools: recon/decoder mismatch")
+    used = {"MIP": any((d.modes8 >= 67).any() for d in decs),
+            "MRL": any(d.mrl8.any() for d in decs),
+            "ISP": any(d.isp8.any() for d in decs),
+            "MTS": any(d.mts8.any() for d in decs),
+            "LFNST": any(d.lfnst8.any() for d in decs),
+            "CCLM": any(d.cmode8.any() for d in decs)}
+    print(f"[5a] 64x96 AI, 3 frames, six tools: {len(data)} bytes equal "
+          "to the spec model; card and spec decoders verified hashes; "
+          f"tools chosen: {', '.join(k for k, v in used.items() if v)}")
+    print(f"[5a] intra tools: card == CPU on {_tool_worst_cases(dev)} "
+          "worst-case batches (LFNST, MTS rows, ISP stripes, choose_tx, "
+          "MIP, CCLM)")
+
+    launches = 0
+    for tag, n, h, w, seed, kw, want in (
+            ("[5b] config #1, 416x240 AI QP32", 4, 240, 416, 0, {},
+             "47040"),
+            ("[5c] config #2, 1080p AI QP32, six tools", 3, 1080, 1920, 2,
+             AI_TOOLS, "1444184")):
+        r = _run_full(dev, synth_frames(n, h, w, seed=seed),
+                      tseq.EncoderConfig(qp=32, **kw))
+        bpf = f"{sum(r['bits']) / n:.0f}"
+        if bpf != want:
+            raise AssertionError(f"{tag}: {bpf} bits/frame, the reference "
+                                 f"engine gives {want}")
+        if r["launches"] != 0:
+            raise AssertionError(f"{tag}: me_sad launched {r['launches']} "
+                                 "times on an all-intra path")
+        print(f"{tag}, {n} frames: {bpf} bits/frame as the reference "
+              f"engine; frame-0 Y-PSNR {r['psnr'][0]:.4f} dB")
+        _report(tag[:4], r, n)
+        launches += r["launches"]
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -374,7 +535,7 @@ def main() -> int:
     dev = torch.device("cuda")
     krow = phase_kernels(dev)
     phase_small(dev)
-    launches = phase_full(dev) + phase_ra(dev)
+    launches = phase_full(dev) + phase_ra(dev) + phase_ai(dev)
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",

@@ -1,8 +1,10 @@
 """Tests that need the card: the hand-written kernel against its plain
-twin, the float64 transform products against the CPU path, and the
+twin, the float64 transform products against the CPU path, the
 random-access path (ext motion search, B decisions, frame-batched wave)
-on the card against the CPU.  They skip without CUDA; on the GPU machine (which has no JAX, so the JAX test
-configuration is bypassed):
+and all-intra with the intra toolset (the transform and chroma choices
+included) on the card against the CPU.  They skip without CUDA; on the
+GPU machine (which has no JAX, so the JAX test configuration is
+bypassed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
@@ -115,3 +117,67 @@ def test_ra_gop4_card_equals_cpu(cuda):
     for a, b, c in zip(rec, crec, out):
         for i in range(3):
             assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])
+
+
+AI_TOOLS = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
+                cclm=True)
+
+
+def test_ai_intra_tools_card_equals_cpu(cuda):
+    """All-intra with the six intra tools on chip_smoke phase 5a's clip:
+    same bytes and recon on the card as on the CPU, and the card decodes
+    its own stream with hashes verified."""
+    from chip_smoke import synth_frames
+    frames = synth_frames(3, 64, 96, seed=2)
+    cfg = tseq.EncoderConfig(qp=32, **AI_TOOLS)
+    data, rec, bits = tenc.encode_sequence(frames, cfg, device=cuda)
+    cdata, crec, cbits = tenc.encode_sequence(frames, cfg, device="cpu")
+    assert data == cdata and bits == cbits
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=cuda)
+    for a, b, c in zip(rec, crec, out):
+        for i in range(3):
+            assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])
+
+
+@pytest.mark.parametrize("s", [8, 16, 32])
+def test_choose_tx_card_equals_cpu(cuda, s):
+    """The stacked MTS/LFNST choice on a batch with all-zero, constant
+    and saturated rows (ties) and the MIP penalty."""
+    rng = np.random.default_rng(s)
+    resi = rng.integers(-60, 61, (64, s, s)).astype(np.int32)
+    resi[0], resi[1], resi[2], resi[3] = 0, 1, 255, -255
+    mode = rng.integers(0, 67, 64).astype(np.int32)
+    allow = np.arange(64) % 4 > 0
+    outs = [ttf.choose_tx(torch.as_tensor(resi, device=d), s, 32, 347,
+                          torch.as_tensor(mode, device=d), mts=True,
+                          lfnst=True, rdoq=True,
+                          allow=torch.as_tensor(allow, device=d))
+            for d in (cuda, torch.device("cpu"))]
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("s", [8, 16, 32])
+def test_cclm_card_equals_cpu(cuda, s):
+    """CCLM over every leaf of a 128x128 frame: frame edges (one or no
+    neighbour), a flat luma area (zero range) and noise."""
+    from vvctpu_torch.kernels import intra_pred as kip
+    rng = np.random.default_rng(s)
+    h = w = 128
+    by = np.zeros((1, h + 1 + kip.MARGIN, w + 1 + kip.MARGIN), np.int32)
+    by[0, 1:h + 1, 1:w + 1] = rng.integers(0, 256, (h, w))
+    by[0, 1:40, 1:40] = 90
+    bc = np.zeros((1, h // 2 + 1 + kip.MARGIN, w // 2 + 1 + kip.MARGIN),
+                  np.int32)
+    bc[0, 1:h // 2 + 1, 1:w // 2 + 1] = rng.integers(0, 256,
+                                                     (h // 2, w // 2))
+    pts = [(x, y) for y in range(0, h, s) for x in range(0, w, s)]
+    recy = rng.integers(0, 256, (len(pts), s, s)).astype(np.int32)
+    cx = np.asarray([p[0] // 2 for p in pts], np.int32)
+    cy = np.asarray([p[1] // 2 for p in pts], np.int32)
+    outs = [kip.cclm_predict_local(
+        *(torch.as_tensor(a, device=d) for a in (by, bc, recy, cx, cy)),
+        cs=s // 2, n_ctu_x=2,
+        f=torch.zeros(len(pts), dtype=torch.int32, device=d))
+        for d in (cuda, torch.device("cpu"))]
+    assert torch.equal(outs[0].cpu(), outs[1])

@@ -71,7 +71,8 @@ def test_corrupt_stream_fails_hash():
                                 dict(subpic_cols=2), dict(lmcs=True),
                                 dict(alf=True), dict(mctf=True),
                                 dict(rc_bits_per_frame=1000),
-                                dict(mts=True), dict(ctu=128)])
+                                dict(mts=True, intra_period=0),
+                                dict(ctu=128)])
 def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)
     with pytest.raises(ValueError, match="outside"):

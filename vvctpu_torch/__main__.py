@@ -1,9 +1,11 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
 the PyTorch engine (all-intra, low-delay P or random access, default
-toolset).
+toolset; in all-intra also the intra toolset).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --mts --lfnst --isp --mip --mrl --cclm -f 3 -b ai.bin
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
@@ -14,6 +16,16 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+# the intra toolset flags (all-intra only), with the reference CLI's help
+_INTRA_TOOLS = {
+    "mts": "explicit MTS (DST7/DCT8) for intra luma",
+    "lfnst": "LFNST secondary transform for intra luma",
+    "isp": "intra sub-partitions (stripe TBs, implicit DST7)",
+    "mip": "matrix intra prediction (generated weights)",
+    "mrl": "multi-reference-line intra (lines 0/1/2)",
+    "cclm": "CCLM chroma-from-luma prediction",
+}
 
 
 def _enc(args) -> int:
@@ -26,7 +38,8 @@ def _enc(args) -> int:
         print("no frames read", file=sys.stderr)
         return 1
     cfg = seq.EncoderConfig(qp=args.qp, intra_period=args.intra_period,
-                            gop=args.gop, wpp=args.wpp)
+                            gop=args.gop, wpp=args.wpp,
+                            **{t: getattr(args, t) for t in _INTRA_TOOLS})
     t0 = time.time()
     data, recons, bits = tenc.encode_sequence(frames, cfg,
                                               device=args.device)
@@ -87,6 +100,9 @@ def main(argv=None) -> int:
                    "random access with anchors every N frames")
     e.add_argument("--wpp", action="store_true",
                    help="wavefront entropy lanes (one per CTU row)")
+    for tool, text in _INTRA_TOOLS.items():
+        e.add_argument(f"--{tool}", action="store_true",
+                       help=text + " (all-intra, --ip 1)")
     e.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     d = sub.add_parser("decode", help="decode Annex-B bitstream to YUV")

@@ -1,20 +1,25 @@
 """Transforms and quantisation in PyTorch — twin of vvctpu/kernels/transform.py.
 
-The separable DCT-II products run in float64: every partial sum is an
-integer below 2^53, so the product is exact, and it is rounded back to
-int32 before the rounding shifts (CUDA has no int32 matmul).  The DCT
-matrices are read from ``rom.tr_matrix`` at call time, so a runtime table
-swap (core/tables_spec install/uninstall) takes effect at once.
+The separable DCT-II / DST-VII / DCT-VIII products and the 16x16 LFNST
+products run in float64: every partial sum is an integer below 2^53, so
+the product is exact, and it is rounded back to int32 before the
+rounding shifts (CUDA has no int32 matmul).  The matrices are read from
+``rom.tr_matrix`` / ``rom.lfnst_matrix`` at call time, cached on the
+table's identity, so a runtime table swap (core/tables_spec
+install/uninstall) takes effect at once.
 
 Functions operate on (..., h, w) int32 batches with static (h, w) and a
-host-side integer qp.
+host-side integer qp; the MTS/LFNST RD choice (``choose_tx``) and the
+per-row inverse kernels take a leading block axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..cabac import estimate as est
 from ..core import rom
+from ..spec.transform import MTS_SET, tx_candidates
 
 COEFF_MIN, COEFF_MAX = -32768, 32767
 
@@ -140,3 +145,258 @@ def reconstruct(pred, level, h: int, w: int, qp: int,
     resi = inverse_transform(dequantize(level, h, w, qp, bd), h, w,
                              kind_h, kind_v, bd)
     return (pred.to(torch.int32) + resi).clamp(0, (1 << bd) - 1)
+
+
+# ---------------------------------------------------------------------------
+# MTS / LFNST RD selection (twin of the reference's choose_tx_j family)
+# ---------------------------------------------------------------------------
+
+
+def level_rate_est(lev, dims=None):
+    """Integer rate proxy (nonzero count + bit lengths), int32; ``dims``
+    are the reduced axes (default all)."""
+    a = lev.abs()
+    dims = tuple(range(a.dim())) if dims is None else dims
+    return ((a > 0).sum(dims, dtype=torch.int32)
+            + _bitlen15(a).sum(dims, dtype=torch.int32))
+
+
+def level_rate_fp(lev, w, dims=None):
+    """Fractional-bit (8.8) level rate; ``w`` the (4,) int32 level weights
+    (w_nnz, w_ge2, w_ge4, w_dbl) of ``lvl_weights``."""
+    a = lev.abs()
+    dims = tuple(range(a.dim())) if dims is None else dims
+    nnz = (a > 0).sum(dims, dtype=torch.int32)
+    ge2 = (a >= 2).sum(dims, dtype=torch.int32)
+    ge4 = (a >= 4).sum(dims, dtype=torch.int32)
+    dbl = (_bitlen15(a) - 3).clamp(min=0).sum(dims, dtype=torch.int32)
+    return nnz * w[0] + ge2 * w[1] + ge4 * w[2] + dbl * w[3]
+
+
+def _rd_cost(dist, rate_fp, lam: int):
+    """dist + lam * rate_fp / 256 in wrapping int32, split so that
+    lam * rate stays in range (twin of the reference's _rd_cost_j)."""
+    r = rate_fp.clamp(max=1 << 22)
+    return dist + lam * (r >> 8) + ((lam * (r & 255)) >> 8)
+
+
+_LFNST_CACHE: dict = {}
+
+
+def _lfnst_mats(device):
+    """(4, 2, 16, 16) float64 forward LFNST kernels (set, kernel), read
+    from rom.lfnst_matrix at call time."""
+    srcs = tuple(rom.lfnst_matrix(si, ki) for si in range(rom.LFNST_SETS)
+                 for ki in range(2))
+    key = str(device)
+    hit = _LFNST_CACHE.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], srcs)):
+        t = torch.as_tensor(np.stack(srcs).astype(np.float64),
+                            device=device).reshape(rom.LFNST_SETS, 2, 16, 16)
+        hit = _LFNST_CACHE[key] = (srcs, t)
+    return hit[1]
+
+
+def _lfnst_set(mode):
+    """(set index int32, transpose bool) per row of (B,) luma modes."""
+    tr = mode > rom.DIA_IDX
+    m = torch.where(tr, 68 - mode, mode)
+    s = torch.where(mode <= rom.DC_IDX, 0,
+                    torch.where(m <= 12, 1, torch.where(m <= 23, 2, 3)))
+    return s.to(torch.int32), tr & (mode > rom.DC_IDX)
+
+
+def _lfnst_fwd4(sub, kmat, tr):
+    """Forward LFNST of (..., 4, 4) corners with (..., 16, 16) kernels;
+    ``tr`` (broadcast to the corners) transposes the input."""
+    sub = torch.where(tr[..., None, None], sub.transpose(-1, -2), sub)
+    t = _mm(kmat, sub.reshape(*sub.shape[:-2], 16, 1).to(torch.float64))
+    return ((t.reshape(sub.shape) + 64) >> 7).clamp(COEFF_MIN, COEFF_MAX)
+
+
+def _lfnst_inv4(sub, kmat, tr):
+    """Inverse LFNST of (..., 4, 4) corners (kernel transposed)."""
+    v = _mm(kmat.transpose(-1, -2),
+            sub.reshape(*sub.shape[:-2], 16, 1).to(torch.float64))
+    out = ((v.reshape(sub.shape) + 64) >> 7).clamp(COEFF_MIN, COEFF_MAX)
+    return torch.where(tr[..., None, None], out.transpose(-1, -2), out)
+
+
+def _corner(sub, like):
+    """``like``-shaped zeros with ``sub`` in the top-left 4x4 corner."""
+    out = torch.zeros_like(like)
+    out[..., :4, :4] = sub
+    return out
+
+
+def fwd_lfnst(coef, kernel: int, mode):
+    """Forward secondary transform of (B, h, w) primary coefficients with
+    kernel ``kernel`` (lfnst_idx - 1) of each row's mode set; only the
+    4x4 corner survives."""
+    s_idx, tr = _lfnst_set(mode.to(torch.int32))
+    kmat = _lfnst_mats(coef.device)[s_idx.long(), kernel]
+    return _corner(_lfnst_fwd4(coef[..., :4, :4], kmat, tr), coef)
+
+
+def inv_lfnst(coef, kernel: int, mode):
+    """Inverse secondary transform (inverse = transposed kernel)."""
+    s_idx, tr = _lfnst_set(mode.to(torch.int32))
+    kmat = _lfnst_mats(coef.device)[s_idx.long(), kernel]
+    return _corner(_lfnst_inv4(coef[..., :4, :4], kmat, tr), coef)
+
+
+def inv_lfnst_switch(coef, lfnst_idx, mode):
+    """Per-row inverse LFNST by a (B,) index (0 = identity, clamped to
+    0..2): one gather of each row's kernel, one batched product."""
+    idx = lfnst_idx.to(torch.int32).clamp(0, 2)
+    s_idx, tr = _lfnst_set(mode.to(torch.int32))
+    kmat = _lfnst_mats(coef.device)[s_idx.long(),
+                                    (idx - 1).clamp(min=0).long()]
+    inv = _corner(_lfnst_inv4(coef[..., :4, :4], kmat, tr), coef)
+    return torch.where((idx > 0)[:, None, None], inv, coef)
+
+
+_TX_CONST: dict = {}
+
+
+def _tx_const(cands: tuple, s: int, device):
+    """(C, s, s) float64 stacks of each candidate's vertical and
+    horizontal primary kernels (LFNST candidates ride the DCT-II pair),
+    read from rom.tr_matrix at call time."""
+    pairs = [MTS_SET[mk] for mk, _ in cands]
+    srcs = tuple(rom.tr_matrix(k, s) for kh, kv in pairs for k in (kv, kh))
+    key = (cands, s, str(device))
+    hit = _TX_CONST.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], srcs)):
+        mh = torch.stack([_mat(kv, s, device) for kh, kv in pairs])
+        mw = torch.stack([_mat(kh, s, device) for kh, kv in pairs])
+        hit = _TX_CONST[key] = (srcs, mh, mw)
+    return hit[1], hit[2]
+
+
+_MTS_ROWS = tuple((k, 0) for k in range(5))
+
+
+def inverse_transform_rows(coef, s: int, midx, bd: int = 8):
+    """inverse_transform of (B, s, s) coefficients with each row's MTS
+    pair MTS_SET[midx] ((B,) index, clamped to 0..4): a gather of the
+    kernels and one batched product pair."""
+    mh, mw = _tx_const(_MTS_ROWS, s, coef.device)
+    i = midx.long().clamp(0, 4)
+    gh, gw = mh[i], mw[i]
+    st2 = 20 - bd
+    e = ((_mm(gh.transpose(-1, -2), coef.to(torch.float64)) + 64) >> 7) \
+        .clamp(COEFF_MIN, COEFF_MAX)
+    x = (_mm(e.to(torch.float64), gw) + (1 << (st2 - 1))) >> st2
+    return x.clamp(COEFF_MIN, COEFF_MAX)
+
+
+def tx_bits(qp: int):
+    """``estimate.tx_bits(qp)``: the host tables of the MTS / LFNST / SBT
+    index bits and the level-rate weights (8.8); the flat tables under
+    VVCTPU_FLAT_BITS, read at call time since ``decision_bits``' cache
+    is not keyed on that switch."""
+    return est._flat_tables() if est.flat_bits() else est.tx_bits(qp)
+
+
+_LVL_W: dict = {}
+
+
+def lvl_weights(qp: int, device):
+    """``tx_bits(qp).lvl_w`` as a (4,) int32 tensor on ``device``, built
+    once per (qp, device, flat-bits switch)."""
+    key = (int(qp), str(device), est.flat_bits())
+    hit = _LVL_W.get(key)
+    if hit is None:
+        hit = _LVL_W[key] = torch.as_tensor(
+            np.asarray(tx_bits(qp).lvl_w, np.int32), device=device)
+    return hit
+
+
+_CAND_CONST: dict = {}
+
+
+def _cand_const(cands: tuple, mts: bool, lfnst: bool, qp: int, device):
+    """Per-candidate device constants of choose_tx, built once per
+    (candidates, qp, device) so that no call uploads from the host: the
+    index bits (8.8; the LFNST index is coded after DCT-II only), the
+    non-DCT-II mask and the (mts, lfnst) index of each candidate."""
+    key = (cands, mts, lfnst, int(qp), str(device), est.flat_bits())
+    hit = _CAND_CONST.get(key)
+    if hit is None:
+        tb = tx_bits(qp)
+        mts_fp, lfnst_fp = tb.mts_fp, tb.lfnst_fp
+        bits = np.asarray([(int(mts_fp[mk]) if mts else 0)
+                           + (int(lfnst_fp[lk]) if lfnst and mk == 0 else 0)
+                           for mk, lk in cands], np.int32)
+        pen = np.asarray([(mk, lk) != (0, 0) for mk, lk in cands])
+        idx = np.asarray(cands, np.int32)
+        hit = _CAND_CONST[key] = tuple(
+            torch.as_tensor(a, device=device) for a in (bits, pen, idx))
+    return hit
+
+
+def choose_tx(resi, s: int, qp: int, lam_rd: int, mode, bd: int = 8,
+              mts: bool = True, lfnst: bool = False, rdoq: bool = False,
+              allow=None):
+    """Joint MTS/LFNST RD choice for (B, s, s) luma residuals with (B,)
+    modes: every candidate of ``tx_candidates(mts, lfnst)`` is transformed,
+    quantised, reconstructed and costed in one stacked pass, and the first
+    minimum in candidate order wins.  ``allow`` ((B,) bool, optional):
+    where False every candidate but DCT-II alone costs 2^29 more (MIP
+    leaves).  Returns (mts_idx (B,), lfnst_idx (B,), levels (B, s, s),
+    reconstructed residual (B, s, s)), int32."""
+    dev = resi.device
+    cands = tuple(tx_candidates(mts, lfnst))
+    # the two LFNST candidates come last and ride the DCT-II primaries
+    ls = slice(len(cands) - 2, len(cands)) if lfnst else None
+    B = resi.shape[0]
+    mh, mw = _tx_const(cands, s, dev)
+    bits, pen, idx_c = _cand_const(cands, mts, lfnst, qp, dev)
+
+    st1 = _log2(s) + bd - 9
+    st2 = _log2(s) + 6
+    x = resi.to(torch.int32)
+    e = (_mm(x.to(torch.float64)[:, None], mw.transpose(1, 2))
+         + (1 << (st1 - 1))) >> st1
+    coef = ((_mm(mh, e.to(torch.float64)) + (1 << (st2 - 1))) >> st2) \
+        .clamp(COEFF_MIN, COEFF_MAX)                      # (B, C, s, s)
+    if lfnst:
+        s_idx, tr = _lfnst_set(mode.to(torch.int32))
+        kmat = _lfnst_mats(dev)[s_idx.long()]             # (B, 2, 16, 16)
+        tr2 = tr[:, None].expand(B, 2)
+        coef[:, ls] = _corner(_lfnst_fwd4(coef[:, :1, :4, :4].expand(
+            B, 2, 4, 4), kmat, tr2), coef[:, ls])
+
+    lev = quantize(coef, s, s, qp, intra=True, bd=bd, rdoq=rdoq,
+                   lam_rd=lam_rd)
+    dqc = dequantize(lev, s, s, qp, bd)
+    if lfnst:
+        dqc[:, ls] = _corner(_lfnst_inv4(dqc[:, ls, :4, :4], kmat, tr2),
+                             dqc[:, ls])
+
+    st2i = 20 - bd
+    ei = ((_mm(mh.transpose(1, 2), dqc.to(torch.float64)) + 64) >> 7) \
+        .clamp(COEFF_MIN, COEFF_MAX)
+    rec = ((_mm(ei.to(torch.float64), mw) + (1 << (st2i - 1))) >> st2i) \
+        .clamp(COEFF_MIN, COEFF_MAX)
+
+    dist = ((x[:, None] - rec) ** 2).sum((-2, -1), dtype=torch.int32)
+    rate_fp = level_rate_fp(lev, lvl_weights(qp, dev), dims=(-2, -1)) + bits
+    costs = _rd_cost(dist, rate_fp, lam_rd)
+    if allow is not None:
+        costs = costs + ((pen[None] & ~allow[:, None]).to(torch.int32)
+                         << 29)
+    idx = torch.argmin(costs, dim=1)
+    rows = torch.arange(B, device=dev)
+    return (idx_c[idx, 0], idx_c[idx, 1], lev[rows, idx], rec[rows, idx])
+
+
+def choose_mts(resi, s: int, qp: int, lam_rd: int, bd: int = 8):
+    """(mts_idx, levels, reconstructed residual): the MTS-only RD choice
+    (choose_tx without LFNST)."""
+    midx, _, lev, rec = choose_tx(
+        resi, s, qp, lam_rd,
+        torch.zeros(resi.shape[0], dtype=torch.int32, device=resi.device),
+        bd, mts=True, lfnst=False)
+    return midx, lev, rec

@@ -2,10 +2,13 @@
 
 Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
 P and random access (hierarchical B, any ``gop`` and ``intra_period``),
-one tile, CTU 64, the default toolset.  One temporal layer's B frames are
-decided frame by frame and reconstructed in one frame-batched wave.  The
-bitstreams are byte-identical to the reference engine's and to the spec
-model's.  Anything outside the slice raises.
+one tile, CTU 64, the default toolset plus, in all-intra, VVC's intra
+toolset (MTS, LFNST, ISP, MIP, MRL, CCLM).  All-intra frames are
+reconstructed in groups of up to eight per frame-batched wave; one
+temporal layer's B frames are decided frame by frame and reconstructed
+in one frame-batched wave.  The bitstreams are byte-identical to the
+reference engine's and to the spec model's.  Anything outside the slice
+raises.
 """
 from __future__ import annotations
 
@@ -29,18 +32,24 @@ from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
 # EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("mts", "mip", "mrl", "tskip", "jccr", "mmvd", "dmvr", "bcw",
-              "amvr", "smvd", "ciip", "sbt", "bdof", "isp", "gpm", "affine",
-              "lfnst", "cclm", "dq", "mtt", "tt", "ibc", "plt", "lmcs", "alf",
-              "mctf")
-_SPS_OFF = ("mts", "lfnst", "mip", "mrl", "ts", "jccr", "mmvd", "bcw",
-            "amvr", "smvd", "ciip", "sbt", "dmvr", "bdof", "isp", "gpm",
-            "affine", "dq", "mtt", "tt", "ibc", "plt", "cclm", "lmcs", "alf")
+_OFF_TOOLS = ("tskip", "jccr", "mmvd", "dmvr", "bcw", "amvr", "smvd", "ciip",
+              "sbt", "bdof", "gpm", "affine", "dq", "mtt", "tt", "ibc", "plt",
+              "lmcs", "alf", "mctf")
+_SPS_OFF = ("ts", "jccr", "mmvd", "bcw", "amvr", "smvd", "ciip", "sbt",
+            "dmvr", "bdof", "gpm", "affine", "dq", "mtt", "tt", "ibc", "plt",
+            "lmcs", "alf")
+# the intra toolset: encoded in all-intra only, decoded in every slice type
+_AI_TOOLS = ("mts", "lfnst", "isp", "mip", "mrl", "cclm")
+# frames per frame-batched wave
+_GROUP = 8
 
 
 def check_config(cfg: sseq.EncoderConfig) -> None:
     """Raise ValueError for a configuration outside this slice."""
     bad = [t for t in _OFF_TOOLS if getattr(cfg, t)]
+    if cfg.intra_period != 1:
+        bad += [f"{t} with intra_period={cfg.intra_period}"
+                for t in _AI_TOOLS if getattr(cfg, t)]
     if cfg.tile_cols * cfg.tile_rows != 1:
         bad.append("tiles")
     if cfg.subpic_cols * cfg.subpic_rows != 1:
@@ -53,7 +62,8 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
         raise ValueError("outside the PyTorch port's slice (one tile, CTU "
-                         "64, default toolset): " + ", ".join(bad))
+                         "64, default toolset; the intra toolset in "
+                         "all-intra only): " + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -65,6 +75,12 @@ def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
     if bad:
         raise ValueError("stream outside the PyTorch port's slice: "
                          + ", ".join(bad))
+
+
+def _wave_tools(sps: hls.SPS) -> dict:
+    """frame_wave_batch's intra tool flags from the SPS."""
+    return dict(mts=sps.mts_enabled, lfnst=sps.lfnst_enabled,
+                cclm=sps.cclm_enabled, mip=sps.mip_enabled)
 
 
 def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device):
@@ -131,7 +147,9 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
             bs.NalUnit(bs.NAL_PPS, pps.write())]
     recons = [None] * len(frames)
     bits = [None] * len(frames)
-    dpb = {}   # poc -> padded filtered recon planes on the device
+    # poc -> padded filtered recon planes on the device (none in
+    # all-intra, where no picture is referenced)
+    dpb = None if cfg.intra_period == 1 else {}
     mot = {}   # poc -> motion_record (TMVP side table)
     plan = sseq.gop_plan(len(frames), cfg.intra_period, cfg.gop)
     # host entropy of frame i overlaps the device passes of frame i + 1;
@@ -140,7 +158,7 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
     try:
         pi = 0
         while pi < len(plan):
-            grp = _b_group(plan, pi)
+            grp = _b_group(plan, pi, all_intra=dpb is None)
             pi += len(grp)
             _, stype, _, qpd = grp[0]
             with _stage(f"layer {_tid(stype, qpd)}", layer_times, dev):
@@ -155,10 +173,14 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
     return bs.write_annexb(flat), recons, bits
 
 
-def _b_group(plan, i, cap: int = 8):
-    """Maximal run plan[i:j] of mutually-independent B entries with equal
-    qp_delta and equal BI symmetry — the frames of one temporal layer
-    under the breadth-first GOP plan (twin of the reference's)."""
+def _b_group(plan, i, all_intra: bool = False):
+    """Maximal run plan[i:j], at most _GROUP long, of mutually-independent
+    entries: in all-intra, consecutive I entries; otherwise B entries
+    with equal qp_delta and equal BI symmetry — the frames of one
+    temporal layer under the breadth-first GOP plan (twin of the
+    reference's)."""
+    if all_intra:
+        return plan[i:i + _GROUP]
     p0, s0, r0, q0 = plan[i]
     if s0 != hls.SLICE_B or len(r0) != 2:
         return plan[i:i + 1]
@@ -170,7 +192,7 @@ def _b_group(plan, i, cap: int = 8):
 
     grp = [plan[i]]
     pocs = {p0}
-    for j in range(i + 1, min(len(plan), i + cap)):
+    for j in range(i + 1, min(len(plan), i + _GROUP)):
         poc, stype, refs, qpd = plan[j]
         if (stype != hls.SLICE_B or len(refs) != 2 or qpd != q0
                 or sym(plan[j]) != sym(plan[i])
@@ -185,7 +207,8 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
                   pool, stage_times, dev):
     """Encode plan entries that share slice type and QP and reference no
     picture among themselves: the decisions of every frame, one
-    frame-batched wave, then each frame's loop filters and entropy."""
+    frame-batched wave, then each frame's loop filters and entropy.
+    ``dpb`` is None in all-intra."""
     qpd = grp[0][3]
     qp = cfg.qp + qpd
     decs, padded_l, frs = [], [], []
@@ -195,8 +218,10 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
         me_ext = any(abs(poc - r) > 1 for r in ref_pocs)
         with _stage("decide", stage_times, dev):
             if stype == hls.SLICE_I:
-                dec = tdecide.decide_frame(padded[0], qp, cfg.bit_depth,
-                                           device=dev)
+                dec = tdecide.decide_frame(
+                    padded[0], qp, cfg.bit_depth, device=dev,
+                    mip=sps.mip_enabled, mrl=sps.mrl_enabled,
+                    isp=sps.isp_enabled)
             elif stype == hls.SLICE_P:
                 dec = tdecide.decide_frame_p(
                     padded[0], dpb[ref_pocs[0]][0], qp, cfg.bit_depth,
@@ -212,31 +237,50 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
         outs = wave.frame_wave_batch(
             frs, frame_w=sps.width, frame_h=sps.height,
             log2_ctu=sps.log2_ctu, qp=qp, bd=cfg.bit_depth, encode=True,
-            rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp))
-    for (poc, stype, ref_pocs, _), dec, padded, out in zip(grp, decs,
-                                                           padded_l, outs):
-        _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs,
-                      qpd, qp, out, dpb, mot, nals, recons, bits, pool,
-                      stage_times, dev)
+            rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp), **_wave_tools(sps))
+    # every frame's filters are launched before the group's first entropy
+    # job starts on the worker thread, which would slow their many small
+    # launches on this one (1080p all-intra on an H100: 9 s against 0.1 s)
+    chains = [_filter_frame(cfg, sps, dec, padded, e[0], qp, out, dpb,
+                            stage_times, dev)
+              for e, dec, padded, out in zip(grp, decs, padded_l, outs)]
+    for (poc, stype, ref_pocs, _), dec, out, chain in zip(grp, decs, outs,
+                                                          chains):
+        _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, out,
+                    chain, mot, nals, recons, bits, pool, stage_times, dev)
 
 
-def _finish_frame(cfg, sps, pps, dec, padded, poc, stype, ref_pocs, qpd,
-                  qp, scan_out, dpb, mot, nals, recons, bits, pool,
+def _filter_frame(cfg, sps, dec, padded, poc, qp, scan_out, dpb,
                   stage_times, dev):
-    """Post-scan tail of one frame: loop filters on the device, the padded
-    reference into the DPB, one fetch, then host entropy and NAL units
-    (on the pool's worker when there is one)."""
-    is_intra = stype == hls.SLICE_I
+    """Loop filters of one reconstructed frame on the device; with a
+    ``dpb``, its padded reference goes in.  Returns the filter chain's
+    device outputs (planes and SAO parameters)."""
     lam_sao = int(round(0.57 * (2.0 ** ((qp - 12) / 3.0)) * 256.0))
     with _stage("loopfilter", stage_times, dev):
         chain = lfk.finish_frame_j(
             list(scan_out[:3]), dec, qp, lam_sao, padded, ctu=cfg.ctu,
             bd=cfg.bit_depth, deblock_on=sps.deblock_enabled,
             sao_on=sps.sao_enabled)
-        dpb[poc] = recon.pad_refs_dev(chain[:3])
+        if dpb is not None:
+            dpb[poc] = recon.pad_refs_dev(chain[:3])
+    return chain
+
+
+def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
+                chain, mot, nals, recons, bits, pool, stage_times, dev):
+    """Tail of one frame: one fetch of its levels, tool planes and filter
+    outputs, the chosen tool indices into ``dec``, then host entropy and
+    NAL units (on the pool's worker when there is one)."""
+    is_intra = stype == hls.SLICE_I
     with _stage("fetch", stage_times, dev):
-        ly, lcb, lcr, cy, ccb, ccr, sao_t, sao_o, sao_b = _fetch(
-            list(scan_out[3:6]) + list(chain))
+        (ly, lcb, lcr, mtsp, lfnstp, cmodep, cy, ccb, ccr, sao_t, sao_o,
+         sao_b) = _fetch(list(scan_out[3:9]) + list(chain))
+    if sps.mts_enabled:
+        dec.mts8[:] = mtsp.astype(np.uint8)
+    if sps.lfnst_enabled:
+        dec.lfnst8[:] = lfnstp.astype(np.uint8)
+    if sps.cclm_enabled:
+        dec.cmode8[:] = cmodep.astype(np.uint8)
     sh = hls.SliceHeader(poc=poc, slice_type=stype, qp_delta=qpd,
                          ref_pocs=ref_pocs, lmcs_cw=())
     rec = [cy, ccb, ccr]
@@ -385,6 +429,7 @@ def _decode_group(grp, sps, pps_map, dpb, device, stage_times):
     with _stage("wave", stage_times, device):
         outs = wave.frame_wave_batch(
             frs, frame_w=sps.width, frame_h=sps.height,
-            log2_ctu=sps.log2_ctu, qp=qp, bd=sps.bit_depth, encode=False)
+            log2_ctu=sps.log2_ctu, qp=qp, bd=sps.bit_depth, encode=False,
+            **_wave_tools(sps))
     return [(e, _dec_filters(e, sps, list(out[:3]), qp, dpb, stage_times,
                              device)) for e, out in zip(grp, outs)]

@@ -51,6 +51,43 @@ def _component(src, pred, f, xs, ys, w: int, h: int, qp: int, bd: int,
     return rec, lev
 
 
+def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
+              rdoq: bool, lam_rd: int):
+    """Chroma prediction choice of a batch of leaves (twin of the
+    reference's chroma_rd_j): each (Cb, Cr) prediction pair of
+    ``pred_opts`` (DM first, then CCLM) is coded, reconstructed and costed
+    in one stacked pass; the first minimum in option order wins.
+
+    bcbk, bcrk: (B, cs, cs) source blocks; pred_opts: [(pred_cb, pred_cr)]
+    of (B, cs, cs).  Returns (lev_cb, lev_cr, rec_cb, rec_cr, use_c) with
+    use_c the (B,) index of the chosen option."""
+    dev = bcbk.device
+    P = len(pred_opts)
+    mx = (1 << bd) - 1
+    res = ([bcbk - pcb for pcb, _ in pred_opts]
+           + [bcrk - pcr for _, pcr in pred_opts])
+    coef = transform.forward_transform(torch.stack(res, 1), cs, cs, bd=bd)
+    lev = transform.quantize(coef, cs, cs, qp, intra=True, bd=bd,
+                             rdoq=rdoq, lam_rd=lam_rd)
+    rr = transform.inverse_transform(
+        transform.dequantize(lev, cs, cs, qp, bd), cs, cs, bd=bd)
+    rate_fp = transform.level_rate_fp(
+        lev, transform.lvl_weights(qp, dev), dims=(-2, -1)).clamp(
+        max=1 << 22)
+    rate_w, rate_f = rate_fp >> 8, rate_fp & 255
+    dist = ((torch.stack(res, 1) - rr).abs().clamp(max=2047) ** 2).sum(
+        (-2, -1), dtype=torch.int32)
+    cost = (dist[:, :P] + dist[:, P:] + lam_rd * rate_w[:, :P]
+            + ((lam_rd * rate_f[:, :P]) >> 8) + lam_rd * rate_w[:, P:]
+            + ((lam_rd * rate_f[:, P:]) >> 8))
+    i = torch.argmin(cost, dim=1)
+    b = torch.arange(i.shape[0], device=dev)
+    pcb = torch.stack([p for p, _ in pred_opts], 1)[b, i]
+    pcr = torch.stack([p for _, p in pred_opts], 1)[b, i]
+    return (lev[b, i], lev[b, P + i], (pcb + rr[b, i]).clamp(0, mx),
+            (pcr + rr[b, P + i]).clamp(0, mx), i.to(torch.int32))
+
+
 def _scatter(buf, blocks, f, xs, ys, w: int, h: int, off: int):
     """buf[f, ys + off + i, xs + off + j] = blocks[:, i, j], in place.
     Every block must lie inside its frame: callers drop the reference's

@@ -5,7 +5,8 @@ every leaf that produces a reference sample available to it (z-order
 availability).  The device then runs one batch per (level, leaf class)
 and scatters the block results into the recon buffers.  Phase A (every
 inter leaf, which depends on nothing in the current frame) runs first.
-One engine: an eager loop over the schedule, default toolset.  It runs F
+One engine: an eager loop over the schedule, with the intra toolset
+(MIP, MRL, ISP, MTS, LFNST, CCLM) on the phase-B leaves.  It runs F
 mutually independent frames at once (one temporal layer's B frames): the
 buffers carry a leading frame axis, every row its frame index, and the
 frames' schedules merge by (level, class), so one launch sequence covers
@@ -16,7 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels import intra_pred
+from ..core import rom
+from ..kernels import intra_pred, transform
+from ..spec.codec import isp_kernels, isp_parts
 from . import plan as planmod
 from . import recon
 from .recon import MARGIN
@@ -26,6 +29,10 @@ from .recon import MARGIN
 # ---------------------------------------------------------------------------
 
 _MAX_BATCH = 128
+
+# phase-B leaf batches run since the caller last set this to 0 (each is
+# one eager launch sequence; the host-bound wave's cost is their number)
+batches = 0
 
 
 def _op_class(op: int, ip: int):
@@ -208,55 +215,171 @@ def build_schedule_batch(slot_list, frame_h: int, frame_w: int):
 
 _scatter = recon._scatter
 _comp_local = recon._component
+_gather = recon._gather
 
 
-def _chroma_leaf(bcb, bcr, scb, scr, f, x, y, mode_dm, *, s: int,
+def _scatter8(plane, vals, f, xs, ys):
+    """plane[f, ys // 8, xs // 8] = vals: a leaf's tool index at its
+    top-left 8x8 granule."""
+    plane[f.long(), (ys // 8).long(), (xs // 8).long()] = vals
+
+
+def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
                  frame_w: int, frame_h: int, n_ctu_x: int, log2_ctu: int,
-                 qp: int, bd: int, encode: bool, rdoq: bool, lam_rd: int):
-    """Chroma part of a batch of square intra leaves (DM prediction,
-    separate Cb/Cr residuals).  Returns (rec_cb, lev_cb, rec_cr, lev_cr)."""
+                 qp: int, bd: int, encode: bool, rdoq: bool, lam_rd: int,
+                 cclm: bool):
+    """Chroma part of a batch of B square intra leaves: DM prediction or,
+    with ``cclm``, the RD choice between DM and CCLM (encode) or the
+    signalled choice ``cmode`` (decode); separate Cb/Cr residuals.  Cb
+    and Cr run as one batch of 2B rows over the stacked chroma planes
+    (Cb frames, then Cr frames).  Returns (rec, lev, use_cclm or None),
+    rec and lev (2B, s/2, s/2) with the Cb rows first."""
     cs = s // 2
+    F = carry["bcb"].shape[0]
     cx2, cy2 = x // 2, y // 2
-    out = []
-    for buf, src in ((bcb, scb), (bcr, scr)):
-        top, left = intra_pred.build_references(
-            buf, cx2, cy2, s=cs, is_luma=False, frame_w=frame_w // 2,
-            frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd,
-            f=f)
-        pred = intra_pred.predict(top, left, mode_dm, s=cs, is_luma=False,
-                                  bd=bd)
-        out += list(_comp_local(src, pred, f, cx2, cy2, cs, cs, qp, bd,
-                                encode, rdoq, lam_rd))
-    return tuple(out)
+    x2, y2, f2 = (torch.cat([cx2, cx2]), torch.cat([cy2, cy2]),
+                  torch.cat([f, f + F]))
+    top, left = intra_pred.build_references(
+        carry["bc"], x2, y2, s=cs, is_luma=False, frame_w=frame_w // 2,
+        frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd,
+        f=f2)
+    pred = intra_pred.predict(top, left, torch.cat([mode_dm, mode_dm]),
+                              s=cs, is_luma=False, bd=bd)
+    use_c = None
+    if cclm:
+        lm = torch.cat(intra_pred.cclm_predict_pair(
+            carry["by"], (carry["bcb"], carry["bcr"]), rec_y, cx2, cy2,
+            cs=cs, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd, f=f))
+        if encode:
+            B = x.shape[0]
+            src = _gather(carry["sc"], f2, x2, y2, cs, cs)
+            lev_cb, lev_cr, rcb, rcr, use_c = recon.chroma_rd(
+                src[:B], src[B:], [(pred[:B], pred[B:]), (lm[:B], lm[B:])],
+                cs, qp, bd, rdoq, lam_rd)
+            return (torch.cat([rcb, rcr]), torch.cat([lev_cb, lev_cr]),
+                    use_c)
+        pred = torch.where((torch.cat([cmode, cmode]) > 0)[:, None, None],
+                           lm, pred)
+    rec, lev = _comp_local(carry["sc"], pred, f2, x2, y2, cs, cs, qp, bd,
+                           encode, rdoq, lam_rd)
+    return rec, lev, use_c
 
 
-def _intra_batch(carry, rows, qp: int, lam_rd: int, *, s: int, frame_w: int,
-                 frame_h: int, log2_ctu: int, bd: int, encode: bool,
-                 rdoq: bool):
+def _put_leaf(carry, f, x, y, s: int, rec_y, lev_y, chroma, encode: bool,
+              midx=None, lidx=None):
+    """Scatter a batch of square leaves' recon (and, encoding, levels and
+    tool indices) into the carry, in place."""
+    rec_c, lev_c, use_c = chroma
+    cs = s // 2
+    F = carry["bcb"].shape[0]
+    x2, y2, f2 = (torch.cat([x // 2, x // 2]), torch.cat([y // 2, y // 2]),
+                  torch.cat([f, f + F]))
+    _scatter(carry["by"], rec_y, f, x, y, s, s, 1)
+    _scatter(carry["bc"], rec_c, f2, x2, y2, cs, cs, 1)
+    if not encode:
+        return
+    _scatter(carry["ly"], lev_y, f, x, y, s, s, 0)
+    _scatter(carry["lc"], lev_c, f2, x2, y2, cs, cs, 0)
+    if midx is not None:
+        _scatter8(carry["mtsp"], midx, f, x, y)
+        _scatter8(carry["lfnstp"], lidx, f, x, y)
+    if use_c is not None:
+        _scatter8(carry["cmodep"], use_c, f, x, y)
+
+
+def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
+                 frame_w: int, frame_h: int, log2_ctu: int, bd: int,
+                 encode: bool, rdoq: bool, mts: bool = False,
+                 lfnst: bool = False, cclm: bool = False, mip: bool = False):
     """One dependency level's square intra s-leaves (of any frames):
-    predict, code and reconstruct luma and chroma, scatter into the carry
-    (in place).  rows: (k, 17) device rows, frame index in column 16."""
+    predict (angular on the row's reference line, or MIP), code and
+    reconstruct luma (with the MTS/LFNST choice) and chroma, scatter into
+    the carry (in place).  rows: (k, 17) device rows, frame index in
+    column 16; host: the same rows on the host, which skip the tools no
+    row of the batch uses."""
     x, y, mode, f = rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 16]
+    nm = rom.NUM_LUMA_MODE
     n_ctu_x = frame_w >> log2_ctu
+    mrl = rows[:, 9] if host[:, 9].any() else None
     top, left = intra_pred.build_references(
         carry["by"], x, y, s=s, is_luma=True, frame_w=frame_w,
-        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd, f=f)
-    pred_y = intra_pred.predict(top, left, mode, s=s, is_luma=True, bd=bd)
-    rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
-                               encode, rdoq, lam_rd)
-    rcb, lev_cb, rcr, lev_cr = _chroma_leaf(
-        carry["bcb"], carry["bcr"], carry["scb"], carry["scr"], f, x, y,
-        mode, s=s, frame_w=frame_w, frame_h=frame_h, n_ctu_x=n_ctu_x,
-        log2_ctu=log2_ctu, qp=qp, bd=bd, encode=encode, rdoq=rdoq,
-        lam_rd=lam_rd)
-    cs = s // 2
-    _scatter(carry["by"], rec_y, f, x, y, s, s, 1)
-    _scatter(carry["bcb"], rcb, f, x // 2, y // 2, cs, cs, 1)
-    _scatter(carry["bcr"], rcr, f, x // 2, y // 2, cs, cs, 1)
-    if encode:
-        _scatter(carry["ly"], lev_y, f, x, y, s, s, 0)
-        _scatter(carry["lcb"], lev_cb, f, x // 2, y // 2, cs, cs, 0)
-        _scatter(carry["lcr"], lev_cr, f, x // 2, y // 2, cs, cs, 0)
+        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd, f=f,
+        ref_line=mrl)
+    mode_reg = mode.clamp(max=nm - 1)
+    pred_y = intra_pred.predict(top, left, mode_reg, s=s, is_luma=True,
+                                bd=bd, ref_line=mrl)
+    mode_dm = mode
+    if mip and (host[:, 3] >= nm).any():
+        is_mip = mode >= nm
+        pred_y = torch.where(is_mip[:, None, None], intra_pred.mip_predict(
+            top, left, mode - nm, s=s, bd=bd), pred_y)
+        mode_dm = torch.where(is_mip, rom.PLANAR_IDX, mode)
+    midx = lidx = None
+    if (mts or lfnst) and encode:
+        resi = _gather(carry["sy"], f, x, y, s, s) - pred_y
+        midx, lidx, lev_y, rres = transform.choose_tx(
+            resi, s, qp, lam_rd, mode_reg, bd, mts=mts, lfnst=lfnst,
+            rdoq=rdoq, allow=(mode < nm) if mip else None)
+        rec_y = (pred_y + rres).clamp(0, (1 << bd) - 1)
+    elif (mts or lfnst) and host[:, 6:8].any():
+        lev_y = _gather(carry["sy"], f, x, y, s, s)
+        dqc = transform.dequantize(lev_y, s, s, qp, bd)
+        if host[:, 7].any():
+            dqc = transform.inv_lfnst_switch(dqc, rows[:, 7], mode_reg)
+        rres = transform.inverse_transform_rows(dqc, s, rows[:, 6], bd)
+        rec_y = (pred_y + rres).clamp(0, (1 << bd) - 1)
+    else:
+        rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp,
+                                   bd, encode, rdoq, lam_rd)
+    chroma = _chroma_leaf(
+        carry, rec_y, f, x, y, mode_dm, rows[:, 8], s=s, frame_w=frame_w,
+        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
+        encode=encode, rdoq=rdoq, lam_rd=lam_rd,
+        cclm=cclm and (encode or bool(host[:, 8].any())))
+    _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode, midx, lidx)
+
+
+def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
+               frame_w: int, frame_h: int, log2_ctu: int, bd: int,
+               encode: bool, rdoq: bool, cclm: bool = False):
+    """One dependency level's ISP s-leaves split in direction ``d``: the
+    stripes run in order, each predicted from a per-row window of the
+    recon buffer that the previous stripes' recon patches in place, with
+    the implicit ISP transform pair; then chroma as for square leaves."""
+    x, y, mode, f = rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 16]
+    n_ctu_x = frame_w >> log2_ctu
+    mode_reg = mode.clamp(max=rom.NUM_LUMA_MODE - 1)
+    wn = 2 * s + 2
+    win = _gather(carry["by"], f, x, y, wn, wn)
+    lev_y = torch.zeros((rows.shape[0], s, s), dtype=torch.int32,
+                        device=rows.device)
+    for (dx, dy, w_st, h_st) in isp_parts(s, d):
+        px, py = x + dx, y + dy
+        tk, lk = intra_pred.build_references_rect_win(
+            win, x, y, px, py, w=w_st, h=h_st, is_luma=True,
+            frame_w=frame_w, frame_h=frame_h, n_ctu_x=n_ctu_x,
+            log2_ctu=log2_ctu, bd=bd, leaf_w=s, leaf_h=s)
+        pred = intra_pred.predict_rect(tk, lk, mode_reg, w=w_st, h=h_st,
+                                       is_luma=True, bd=bd)
+        kh, kv = isp_kernels(w_st, h_st)
+        if encode:
+            coef = transform.forward_transform(
+                _gather(carry["sy"], f, px, py, w_st, h_st) - pred, h_st,
+                w_st, kh, kv, bd)
+            lev = transform.quantize(coef, h_st, w_st, qp, intra=True,
+                                     bd=bd, rdoq=rdoq, lam_rd=lam_rd)
+            lev_y[:, dy:dy + h_st, dx:dx + w_st] = lev
+        else:
+            lev = _gather(carry["sy"], f, px, py, w_st, h_st)
+        win[:, dy + 1:dy + 1 + h_st, dx + 1:dx + 1 + w_st] = \
+            transform.reconstruct(pred, lev, h_st, w_st, qp, kh, kv, bd)
+    rec_y = win[:, 1:s + 1, 1:s + 1]
+    chroma = _chroma_leaf(
+        carry, rec_y, f, x, y, mode_reg, rows[:, 8], s=s, frame_w=frame_w,
+        frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
+        encode=encode, rdoq=rdoq, lam_rd=lam_rd,
+        cclm=cclm and (encode or bool(host[:, 8].any())))
+    _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode)
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +390,7 @@ def _intra_batch(carry, rows, qp: int, lam_rd: int, *, s: int, frame_w: int,
 def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
                frame_h: int, qp: int, bd: int, encode: bool,
                log2_ctu: int = 6, inter_enabled: bool = False, refs=None,
-               inter=None, rdoq: bool = False, lam_rd: int = 0):
+               inter=None, rdoq: bool = False, lam_rd: int = 0, **tools):
     """Reconstruct one frame: phase A, then the phase-B intra leaves level
     by level (frame_wave_batch over this one frame).
 
@@ -275,44 +398,56 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
     planes_*: int32 device planes (source when encoding, parsed levels
     when decoding); refs: the padded (y, cb, cr) reference planes of a P
     frame, or (l0 y, cb, cr, l1 y, cb, cr) of a B frame, and inter:
-    {8/16/32: numpy phase-A rows}.  Returns (recon_y, recon_cb, recon_cr,
-    levels_y, levels_cb, levels_cr); the reference's five 8x8-grid tool
-    planes are all zero for the default toolset and are left out."""
+    {8/16/32: numpy phase-A rows}; tools: the intra tool flags of
+    frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr, levels_y,
+    levels_cb, levels_cr, mts, lfnst, cmode); the last three are the 8x8
+    grids of the chosen tool indices (encoding; zero when decoding)."""
     fr = dict(slots=slots, py=planes_y, pcb=planes_cb, pcr=planes_cr)
     if inter_enabled:
         fr.update(refs=refs, inter=inter)
     return frame_wave_batch([fr], frame_w=frame_w, frame_h=frame_h, qp=qp,
                             bd=bd, encode=encode, log2_ctu=log2_ctu,
-                            rdoq=rdoq, lam_rd=lam_rd)[0]
+                            rdoq=rdoq, lam_rd=lam_rd, **tools)[0]
 
 
 def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                      bd: int, encode: bool, log2_ctu: int = 6,
-                     rdoq: bool = False, lam_rd: int = 0):
+                     rdoq: bool = False, lam_rd: int = 0, mts: bool = False,
+                     lfnst: bool = False, cclm: bool = False,
+                     mip: bool = False):
     """Reconstruct F mutually independent frames of one slice type and QP
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
     frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter]} as
     frame_wave takes them; the planes are int32 tensors on the device all
-    frames share.  Returns a list of per-frame 6-tuples, each equal to
-    frame_wave's for that frame alone."""
+    frames share.  mts, lfnst, cclm, mip: the SPS intra tools (MRL and
+    ISP are read from the slot rows).  Returns a list of per-frame
+    9-tuples, each equal to frame_wave's for that frame alone."""
     F = len(frames_in)
     dev = frames_in[0]["py"].device
     h2, w2 = frame_h // 2, frame_w // 2
 
-    def z(h, w):
-        return torch.zeros((F, h, w), dtype=torch.int32, device=dev)
+    def z(h, w, n=F):
+        return torch.zeros((n, h, w), dtype=torch.int32, device=dev)
 
-    def stack(key):
-        return torch.stack([torch.as_tensor(fr[key], device=dev)
-                            for fr in frames_in]).to(torch.int32)
+    def stack(*keys):
+        return torch.stack([torch.as_tensor(fr[k], device=dev)
+                            for k in keys for fr in frames_in]).to(
+                                torch.int32)
 
-    carry = dict(
-        by=z(frame_h + 1 + MARGIN, frame_w + 1 + MARGIN),
-        bcb=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN),
-        bcr=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN),
-        ly=z(frame_h, frame_w), lcb=z(h2, w2), lcr=z(h2, w2),
-        sy=stack("py"), scb=stack("pcb"), scr=stack("pcr"))
+    # chroma: one (2F, ...) stack per kind, Cb frames then Cr frames, so
+    # that a leaf batch codes both components at once; bcb/bcr, lcb/lcr
+    # and scb/scr are views of its halves
+    carry = dict(by=z(frame_h + 1 + MARGIN, frame_w + 1 + MARGIN),
+                 bc=z(h2 + 1 + MARGIN, w2 + 1 + MARGIN, 2 * F),
+                 ly=z(frame_h, frame_w), lc=z(h2, w2, 2 * F),
+                 sy=stack("py"), sc=stack("pcb", "pcr"))
+    for k in ("b", "l", "s"):
+        carry[k + "cb"], carry[k + "cr"] = carry[k + "c"].split(F)
+    carry.update(
+        mtsp=z(frame_h // 8, frame_w // 8),
+        lfnstp=z(frame_h // 8, frame_w // 8),
+        cmodep=z(frame_h // 8, frame_w // 8))
     if frames_in[0].get("refs") is not None:
         # a P frame's three planes serve both lists
         six = [tuple(fr["refs"]) * (2 if len(fr["refs"]) == 3 else 1)
@@ -335,17 +470,25 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         # serialise the host with the device
         all_rows = torch.as_tensor(
             np.concatenate([rows for _, rows in sched]), device=dev)
+    kw = dict(frame_w=frame_w, frame_h=frame_h, log2_ctu=log2_ctu, bd=bd,
+              encode=encode, rdoq=rdoq, cclm=cclm)
+    global batches
+    batches += len(sched)
     o = 0
-    for (kind, w, h, _d), rows in sched:
-        if kind != "intra":
-            raise ValueError(f"leaf class {kind!r} is not in this slice")
-        _intra_batch(carry, all_rows[o:o + rows.shape[0]], qp, lam_rd,
-                     s=w, frame_w=frame_w, frame_h=frame_h,
-                     log2_ctu=log2_ctu, bd=bd, encode=encode, rdoq=rdoq)
+    for (kind, w, h, d), rows in sched:
+        rt = all_rows[o:o + rows.shape[0]]
         o += rows.shape[0]
+        if kind == "intra":
+            _intra_batch(carry, rt, rows, qp, lam_rd, s=w, mts=mts,
+                         lfnst=lfnst, mip=mip, **kw)
+        elif kind == "isp":
+            _isp_batch(carry, rt, rows, qp, lam_rd, s=w, d=d, **kw)
+        else:
+            raise ValueError(f"leaf class {kind!r} is not in this slice")
 
     return [(carry["by"][f, 1:frame_h + 1, 1:frame_w + 1],
              carry["bcb"][f, 1:h2 + 1, 1:w2 + 1],
              carry["bcr"][f, 1:h2 + 1, 1:w2 + 1],
-             carry["ly"][f], carry["lcb"][f], carry["lcr"][f])
+             carry["ly"][f], carry["lcb"][f], carry["lcr"][f],
+             carry["mtsp"][f], carry["lfnstp"][f], carry["cmodep"][f])
             for f in range(F)]
