@@ -37,7 +37,18 @@ Phases, in order; any failure exits non-zero:
    config #2, 3 frames of 1080p all-intra QP32 with the six tools, at
    1444184 bits/frame (the reference engine's bytes), hashes verified,
    recon == decoded, with stage times, fps, the card's busy share and
-   peak memory; me_sad is launched 0 times on these paths.
+   peak memory; me_sad is launched 0 times on these paths;
+6. random access with VVC's inter toolset (BCW, CIIP, GPM, affine with
+   PROF, DMVR, BDOF, MMVD, AMVR, SMVD) and the intra tools in P and B
+   frames: (6a) a 5-frame 64x192 GOP4 clip whose panels call for GPM,
+   affine and CIIP, with every tool of the slice on, encoded on the card
+   must equal the copied spec model's bitstream and decode on the card
+   and in the spec model, hashes verified, and each tool must be chosen;
+   the inter tools on the card must equal the CPU path on worst-case
+   batches; (6b) bench config #4 without SBT, DQ and ALF, 5 frames of
+   1080p RA GOP4 QP32 with WPP: hashes verified, recon == decoded, 7
+   me_sad launches, with stage and per-layer times, fps, the card's busy
+   share and peak memory.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -284,10 +295,11 @@ def _stages_line(tag, times, wall):
     return f"{tag} stages (wall {wall:.2f} s): {parts}"
 
 
-def _run_full(dev, frames, cfg):
+def _run_full(dev, frames, cfg, decisions_out=None):
     """Encode and decode ``frames`` on the card with me_sad's count set to
     0 just before; returns the run's numbers (recon == decoded and the
-    decoder's hash check are enforced here)."""
+    decoder's hash check are enforced here).  decisions_out: as in
+    encode_sequence."""
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.pipeline import encoder as tenc
     from vvctpu_torch.spec import sequence as tseq
@@ -301,7 +313,7 @@ def _run_full(dev, frames, cfg):
         t0 = time.time()
         data, recons, bits = tenc.encode_sequence(
             frames, cfg, device=dev, stage_times=r["enc_t"],
-            layer_times=r["enc_l"])
+            layer_times=r["enc_l"], decisions_out=decisions_out)
         torch.cuda.synchronize()
         r["t_enc"] = time.time() - t0
     r["batches"] = wave.batches
@@ -528,6 +540,243 @@ def phase_ai(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: random access with the inter toolset and the intra tools in P/B
+# ---------------------------------------------------------------------------
+
+RA_TOOLS = dict(mts=True, lfnst=True, cclm=True, mip=True, mmvd=True,
+                bcw=True, amvr=True, smvd=True, ciip=True, gpm=True,
+                affine=True, dmvr=True, bdof=True)
+
+
+def tool_frames(n=5, seed=1):
+    """A 64x192 clip whose three 64x64 panels call for the inter tools:
+    an occlusion across a diagonal edge, each reference matching one side
+    (GPM); a slow zoom with rotation (affine); flat-DC noise shifting
+    under a quadratic brightness drift (CIIP).  The panels are the
+    reference's test generators for those tools."""
+    h = w = 64
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex_a = 90 + 60 * np.sin(xx / 7.0) + 30 * np.cos(yy / 5.0)
+    tex_b = 160 + 50 * np.cos(xx / 6.0) - 30 * np.sin(yy / 8.0)
+    tex_c = 128 + 70 * np.sin((xx + yy) / 4.0)
+    tex_d = 100 + 65 * np.cos((xx - yy) / 5.0)
+    edge = (2 * xx + yy) > (w + h // 2)
+    gpm = []
+    for t in range(n):
+        if t == 0:
+            y = np.where(edge, tex_c, tex_a)      # one side valid
+        elif t == n - 1:
+            y = np.where(edge, tex_b, tex_d)      # the other side valid
+        else:
+            y = np.where(edge, tex_b, tex_a)      # both: needs GPM
+        gpm.append((y + rng.integers(-4, 4, (h, w))).clip(0, 255))
+    rng = np.random.default_rng(seed + 1)
+    zoom = []
+    for t in range(n):
+        sc, th = 1.0 + 0.02 * t, 0.01 * t
+        u = (np.cos(th) * (xx - 32) - np.sin(th) * (yy - 32)) * sc + 32
+        v = (np.sin(th) * (xx - 32) + np.cos(th) * (yy - 32)) * sc + 32
+        zoom.append((120 + 60 * np.sin(u / 6.0) + 45 * np.cos(v / 8.0)
+                     + 20 * np.sin((u + v) / 15.0)
+                     + rng.integers(-3, 3, (h, w))).clip(0, 255))
+    base = np.random.default_rng(seed + 2).integers(50, 98, (h, 2 * w))
+    drift = [np.clip(base[:, 3 * t:3 * t + w] + 12 * t * t, 0, 255)
+             for t in range(n)]
+    cb = (128 + 20 * np.sin(xx[::2, ::2] / 6.0)).astype(np.int32)
+    cr = (128 - 18 * np.cos(yy[::2, ::2] / 5.0)).astype(np.int32)
+    return [[np.concatenate([gpm[t], zoom[t], drift[t]], 1).astype(np.int32),
+             np.concatenate([cb, cb, np.full_like(cb, 118 + 4 * t)], 1),
+             np.concatenate([cr, cr, np.full_like(cr, 134 - 3 * t)], 1)]
+            for t in range(n)]
+def _phase_a_out(refs, rows, s, flags):
+    """Phase A of one leaf size on a zero carry (frame axis of 1, on the
+    refs' device); returns the luma recon and level planes."""
+    from vvctpu_torch.pipeline import recon
+    dev = refs[0].device
+    h, w = refs[0].shape[-2] - 160, refs[0].shape[-1] - 160
+    m = recon.MARGIN
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    src = torch.arange(h * w, device=dev, dtype=torch.int32).reshape(
+        1, h, w) * 37 % 256
+    carry = dict(by=z(1, h + 1 + m, w + 1 + m), bcb=z(1, h // 2 + 1 + m,
+                                                      w // 2 + 1 + m),
+                 bcr=z(1, h // 2 + 1 + m, w // 2 + 1 + m), ly=z(1, h, w),
+                 lcb=z(1, h // 2, w // 2), lcr=z(1, h // 2, w // 2),
+                 sy=src, scb=src[:, ::2, ::2].contiguous(),
+                 scr=src[:, 1::2, 1::2].contiguous())
+    recon._inter_batch_pass(carry, rows, [r[None] for r in refs], s, 32, 8,
+                            True, rdoq=True, lam_rd=347, **flags)
+    return carry["by"], carry["ly"], carry["bcb"], carry["lcr"]
+
+
+def _inter_tool_worst_cases(dev):
+    """The inter tools on the card against the CPU path on worst-case
+    batches: saturated 0/255 references, flat references where every
+    candidate ties, negative MVs and MVs past the padded plane; returns
+    the number of cases."""
+    from vvctpu_torch.coding import decide as tdec
+    from vvctpu_torch.kernels import mc
+    rng = np.random.default_rng(6)
+    n = 0
+    h, w = 64, 128
+    sat = rng.choice([0, 255], (h, w)).astype(np.int32)
+    noisy = rng.integers(0, 256, (h, w)).astype(np.int32)
+    flat = np.full((h, w), 77, np.int32)
+    pads = {k: (np.pad(p, 80, mode="edge"), np.pad(p[::2, ::2], 40,
+                                                   mode="edge"))
+            for k, p in (("sat", sat), ("noisy", noisy), ("flat", flat))}
+    k = 64
+    x = (rng.integers(0, w // 16, k) * 16).astype(np.int32)
+    y = (rng.integers(0, h // 16, k) * 16).astype(np.int32)
+    mv = (rng.integers(-270, 271, (k, 4)) * 4).astype(np.int32)
+    mv[:4, :2] = [[-16 * 95, 0], [0, 16 * 90], [16 * 200, -16 * 200],
+                  [-3, -5]]
+    dm = rng.choice([-8, -4, 0, 4, 8, -29, 36], (k, 2)).astype(np.int32)
+    f = (np.arange(k) % 2).astype(np.int32)
+    for name, (ly, lc) in pads.items():
+        other = pads["noisy"][0]
+        n += _card_eq(f"dmvr_offset {name}", dev, mc.dmvr_offset, ly, other,
+                      x, y, 16, mv[:, 0], mv[:, 1], mv[:, 2], mv[:, 3])
+        stk, cstk = np.stack([ly, other]), np.stack([lc, pads["noisy"][1]])
+        for s in (16, 32):
+            for prof in (False, True):
+                n += _card_eq(f"affine luma {name} s={s} prof={prof}", dev,
+                              mc.affine_pred_luma, stk, x // s * s,
+                              y // s * s, s, mv[:, 0], mv[:, 1], dm[:, 0],
+                              dm[:, 1], 8, prof=prof, f=f)
+            n += _card_eq(f"affine chroma {name} s={s}", dev,
+                          mc.affine_pred_chroma, cstk, x // s * s // 2,
+                          y // s * s // 2, s // 2, mv[:, 0], mv[:, 1],
+                          dm[:, 0], dm[:, 1], s, 8, f=f)
+        for s in (8, 16, 32):
+            g = (h // s, w // s, 2)
+            m0, m1 = (rng.integers(-270, 271, g) * 4).astype(np.int32), \
+                (rng.integers(-270, 271, g) * 4).astype(np.int32)
+            m0[0, 0] = [-16 * 95, 16 * 90]
+            n += _card_eq(f"gpm_pass {name} s={s}", dev, tdec.gpm_pass,
+                          ly[80:-80, 80:-80].copy(), ly, other, m0, m1,
+                          s=s, frame_w=w, frame_h=h)
+            if s >= 16:
+                n += _card_eq(f"affine_pass {name} s={s}", dev,
+                              tdec.affine_pass, ly[80:-80, 80:-80].copy(),
+                              ly, m0, 211, 512, s=s, frame_w=w, frame_h=h)
+    for s in (8, 16, 32):
+        p0 = rng.choice([0, 255], (32, s + 2, s + 2)).astype(np.int32)
+        p1 = rng.choice([0, 255], (32, s + 2, s + 2)).astype(np.int32)
+        p1[0] = 255 - p0[0]
+        p0[1] = p1[1] = 128
+        n += _card_eq(f"bdof_blend s={s}", dev, mc.bdof_blend, p0, p1, 8)
+    # phase A's blends: BCW weights, GPM masks, DMVR + BDOF and affine
+    # with PROF on saturated references
+    refs = [pads["sat"][0], pads["sat"][1], pads["noisy"][1],
+            pads["noisy"][0], pads["noisy"][1], pads["sat"][1]]
+    for s in (8, 16, 32):
+        nb = (h // s) * (w // s)
+        rows = np.zeros((nb, 14), np.int32)
+        rows[:, 0] = np.arange(nb) % (w // s) * s
+        rows[:, 1] = np.arange(nb) // (w // s) * s
+        rows[:, 2:6] = (rng.integers(-64, 65, (nb, 4)) * 4).astype(np.int32)
+        rows[:, 6] = rng.choice([0, 1, 2, 2], nb)
+        rows[:, 7] = rng.integers(0, 3, nb)
+        rows[:, 9] = np.where(rows[:, 6] == 2, rng.integers(0, 65, nb), 0)
+        rows[:, 10] = (rows[:, 6] < 2) & (s >= 16)
+        rows[:, 11:13] = rng.choice([-8, 4, 8, -36], (nb, 2))
+        for flags in (dict(dmvr=True, bdof=True, gpm=True, affine=True),
+                      dict(dmvr=True), dict(bdof=True)):
+            n += _card_eq(f"phase A s={s} {sorted(flags)}", dev,
+                          lambda *r, rows=rows, flags=flags: _phase_a_out(
+                              r, rows, s, flags), *refs)
+    return n
+
+
+def _tool_counts(decs):
+    """Leaves (8x8 granules) of the inter frames that use each tool."""
+    inter = [d for d in decs if d.inter8.any()]
+    cnt = dict(
+        GPM=sum(int((d.gpm8 > 0).sum()) for d in inter),
+        CIIP=sum(int(d.ciip8.sum()) for d in inter),
+        affine=sum(int(d.aff8.sum()) for d in inter),
+        BCW=sum(int(((d.inter8 > 0) & (d.bcw8 != 1)).sum()) for d in inter),
+        BI=sum(int(((d.inter8 > 0) & (d.dir8 == 2)).sum()) for d in inter),
+        intra=sum(int((d.inter8 == 0).sum()) for d in inter),
+        MIP=sum(int(((d.inter8 == 0) & (d.modes8 >= 67)).sum())
+                for d in inter),
+        MRL=sum(int(d.mrl8.astype(bool).sum()) for d in inter),
+        ISP=sum(int(d.isp8.astype(bool).sum()) for d in inter),
+        MTS=sum(int(d.mts8.astype(bool).sum()) for d in inter),
+        LFNST=sum(int(d.lfnst8.astype(bool).sum()) for d in inter),
+        CCLM=sum(int(d.cmode8.astype(bool).sum()) for d in inter))
+    return cnt
+
+
+def _phase_tools_small(dev):
+    """Phase 6a: the 64x192 clip with every tool of the slice against the
+    spec model, and the inter tools' worst-case batches."""
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import sequence as tseq
+    frames = tool_frames()
+    cfg = tseq.EncoderConfig(qp=30, intra_period=0, gop=4, isp=True,
+                             mrl=True, **RA_TOOLS)
+    decs = []
+    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev,
+                                           decisions_out=decs)
+    sdata, _, _ = tseq.encode_sequence(frames, cfg)
+    if data != sdata:
+        raise AssertionError("64x192 GOP4 with the inter and intra tools: "
+                             "card bitstream != spec model's")
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
+    sout, _ = tseq.decode_sequence(data, check_hash=True)
+    if not _same_planes(recons, out, sout):
+        raise AssertionError("64x192 GOP4 tools: recon/decoder mismatch")
+    cnt = _tool_counts(decs)
+    missing = [t for t in ("GPM", "CIIP", "affine", "BCW", "BI")
+               if not cnt[t]]
+    if missing:
+        raise AssertionError(f"64x192 GOP4 tools: never chose {missing}")
+    print(f"[6a] 64x192 GOP4 QP30, 5 frames, every tool of the slice: "
+          f"{len(data)} bytes equal to the spec model; card and spec "
+          "decoders verified hashes; 8x8 granules of P/B frames per tool: "
+          + ", ".join(f"{k} {v}" for k, v in cnt.items()))
+    print(f"[6a] inter tools: card == CPU on {_inter_tool_worst_cases(dev)} "
+          "worst-case batches (dmvr_offset, bdof_blend, affine luma with "
+          "and without PROF and chroma, gpm_pass, affine_pass, phase A "
+          "with BCW/GPM/DMVR/BDOF/affine)")
+
+
+def phase_ra_tools(dev):
+    """Phase 6: random access with the inter toolset and the intra tools
+    in P and B frames; returns me_sad's launches on the 1080p path."""
+    from vvctpu_torch.spec import sequence as tseq
+    _phase_tools_small(dev)
+    n = 5
+    decs = []
+    cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=4, wpp=True,
+                             **RA_TOOLS)
+    r = _run_full(dev, synth_frames(n, 1080, 1920, seed=4), cfg,
+                  decisions_out=decs)
+    # me_sad runs once for P4 and once per list for each of B2, B1, B3
+    if r["launches"] != 7:
+        raise AssertionError(f"me_sad launched {r['launches']} times on "
+                             "the config #4 path, expected 7")
+    tag = "[6b]"
+    print(f"{tag} bench config #4 without SBT, DQ and ALF: 1080p RA GOP4 "
+          f"QP32 WPP, {n} frames (I0 P4 B2 B1 B3), {sum(r['bits']) / n:.1f}"
+          " bits/frame (new data: the reference engine has no config #4 "
+          "number); 8x8 granules of P/B frames per tool: "
+          + ", ".join(f"{k} {v}" for k, v in _tool_counts(decs).items()))
+    _report(tag, r, n)
+    for k in ("enc", "dec"):
+        lt = r[f"{k}_l"]
+        print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
+            f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
+    return r["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -535,7 +784,8 @@ def main() -> int:
     dev = torch.device("cuda")
     krow = phase_kernels(dev)
     phase_small(dev)
-    launches = phase_full(dev) + phase_ra(dev) + phase_ai(dev)
+    launches = (phase_full(dev) + phase_ra(dev) + phase_ai(dev)
+                + phase_ra_tools(dev))
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",

@@ -61,3 +61,19 @@ def test_no_jax_or_reference_import_in_source():
     for f in files:
         m = _BAD_IMPORT.search(f.read_text())
         assert m is None, f"{f}: {m.group(0) if m else ''}"
+
+
+def test_bitlen_arr_copy_identical():
+    """decide._bitlen_arr, the host rate helper of the GPM decision, is a
+    verbatim copy of the reference's and gives the same bit lengths."""
+    import inspect
+
+    import numpy as np
+    pytest.importorskip("jax")
+    from vvctpu.coding import decide as jdecide
+    from vvctpu_torch.coding import decide as tdecide
+    assert (inspect.getsource(tdecide._bitlen_arr)
+            == inspect.getsource(jdecide._bitlen_arr))
+    v = np.arange(-70000, 70000, 7, dtype=np.int32)
+    np.testing.assert_array_equal(tdecide._bitlen_arr(v),
+                                  jdecide._bitlen_arr(v))

@@ -1,11 +1,14 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
-the PyTorch engine (all-intra, low-delay P or random access, default
-toolset; in all-intra also the intra toolset).
+the PyTorch engine (all-intra, low-delay P or random access, with VVC's
+intra and inter toolsets).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --mts --lfnst --isp --mip --mrl --cclm -f 3 -b ai.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --ip 32 --gop 4 --wpp --mts --lfnst --cclm --mip --mmvd --bcw \\
+        --amvr --smvd --ciip --gpm --affine --dmvr --bdof -f 5 -b ra.bin
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
@@ -17,14 +20,23 @@ import argparse
 import sys
 import time
 
-# the intra toolset flags (all-intra only), with the reference CLI's help
-_INTRA_TOOLS = {
+# the tool flags of the slice, with the reference CLI's help
+_TOOLS = {
     "mts": "explicit MTS (DST7/DCT8) for intra luma",
     "lfnst": "LFNST secondary transform for intra luma",
     "isp": "intra sub-partitions (stripe TBs, implicit DST7)",
     "mip": "matrix intra prediction (generated weights)",
     "mrl": "multi-reference-line intra (lines 0/1/2)",
     "cclm": "CCLM chroma-from-luma prediction",
+    "mmvd": "merge with MVD (8 distances x 4 directions)",
+    "dmvr": "decoder-side MV refinement (BI merge leaves)",
+    "bdof": "bi-directional optical flow (BI leaves)",
+    "bcw": "bi-prediction with CU weights {3,4,5}/8",
+    "gpm": "geometric partitioning (64 blend masks, B leaves)",
+    "affine": "4-parameter affine motion + PROF (16/32 leaves)",
+    "amvr": "adaptive MVD resolution (1/4, 1, 4 pel)",
+    "smvd": "symmetric MVD for BI leaves (symmetric refs)",
+    "ciip": "combined inter-intra prediction (planar blend)",
 }
 
 
@@ -39,7 +51,7 @@ def _enc(args) -> int:
         return 1
     cfg = seq.EncoderConfig(qp=args.qp, intra_period=args.intra_period,
                             gop=args.gop, wpp=args.wpp,
-                            **{t: getattr(args, t) for t in _INTRA_TOOLS})
+                            **{t: getattr(args, t) for t in _TOOLS})
     t0 = time.time()
     data, recons, bits = tenc.encode_sequence(frames, cfg,
                                               device=args.device)
@@ -100,9 +112,8 @@ def main(argv=None) -> int:
                    "random access with anchors every N frames")
     e.add_argument("--wpp", action="store_true",
                    help="wavefront entropy lanes (one per CTU row)")
-    for tool, text in _INTRA_TOOLS.items():
-        e.add_argument(f"--{tool}", action="store_true",
-                       help=text + " (all-intra, --ip 1)")
+    for tool, text in _TOOLS.items():
+        e.add_argument(f"--{tool}", action="store_true", help=text)
     e.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     d = sub.add_parser("decode", help="decode Annex-B bitstream to YUV")

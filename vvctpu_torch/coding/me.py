@@ -252,14 +252,17 @@ def _phase_block(planes, xs, ys, mv, s: int):
 
 
 def bi_cost_pass(orig, mv0, mv1, lam, *, s: int, frame_w: int,
-                 frame_h: int, bd: int = 8, planes0, planes1):
+                 frame_h: int, bd: int = 8, planes0, planes1,
+                 bcw: bool = False, bcw_fp=None):
     """BI cost per square s-block (twin of vvctpu.coding.me.bi_cost_pass
-    with bcw off): SAD of the equal-weight average of the two refined uni
-    predictions, plus both quarter-pel MV rates.
+    with the default dense tiling): SAD of the weighted average of the
+    two refined uni predictions, plus both quarter-pel MV rates.  With
+    ``bcw`` each of the three {3,4,5}/8 weights is costed with its
+    bcw_idx rate ``bcw_fp[i]`` (1/256 bits) and the first minimum wins.
 
     mv0, mv1: (nby, nbx, 2) refined MVs in 1/16 pel; planes0/1: the
     quarter_phase_planes of the two references.  Returns (cost, widx),
-    both (nby, nbx) int32; widx is BCW_DEFAULT everywhere."""
+    both (nby, nbx) int32; without ``bcw`` widx is BCW_DEFAULT."""
     dev = orig.device
     nby, nbx = frame_h // s, frame_w // s
     ys = (torch.arange(nby, device=dev, dtype=torch.int32) * s)[:, None] \
@@ -273,12 +276,23 @@ def bi_cost_pass(orig, mv0, mv1, lam, *, s: int, frame_w: int,
     m1 = mv1.reshape(-1, 2).to(torch.int32)
     p0 = _phase_block(planes0, xs, ys, m0, s)
     p1 = _phase_block(planes1, xs, ys, m1, s)
-    wv = BCW_W[BCW_DEFAULT]
-    pb = ((wv * p0 + (8 - wv) * p1 + 4) >> 3).clamp(0, (1 << bd) - 1)
-    sad = (blk - pb).abs().sum((1, 2), dtype=torch.int32)
     bits = (_mv_bits_q(m0[:, 0] >> 2, m0[:, 1] >> 2)
             + _mv_bits_q(m1[:, 0] >> 2, m1[:, 1] >> 2))
-    cost = (sad << 8) + int(lam) * bits
-    return (cost.reshape(nby, nbx),
-            torch.full((nby, nbx), BCW_DEFAULT, dtype=torch.int32,
-                       device=dev))
+    lam = int(lam)
+    costs = []
+    for wi in ((0, 1, 2) if bcw else (BCW_DEFAULT,)):
+        wv = BCW_W[wi]
+        pb = ((wv * p0 + (8 - wv) * p1 + 4) >> 3).clamp(0, (1 << bd) - 1)
+        sad = (blk - pb).abs().sum((1, 2), dtype=torch.int32)
+        c = (sad << 8) + lam * bits
+        if bcw:
+            c = c + ((int(bcw_fp[wi]) * lam) >> 8)
+        costs.append(c)
+    if not bcw:
+        return (costs[0].reshape(nby, nbx),
+                torch.full((nby, nbx), BCW_DEFAULT, dtype=torch.int32,
+                           device=dev))
+    cv = torch.stack(costs, 1)
+    wi = torch.argmin(cv, dim=1)
+    cost = torch.gather(cv, 1, wi[:, None])[:, 0]
+    return cost.reshape(nby, nbx), wi.to(torch.int32).reshape(nby, nbx)

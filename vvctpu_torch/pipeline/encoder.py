@@ -2,8 +2,10 @@
 
 Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
 P and random access (hierarchical B, any ``gop`` and ``intra_period``),
-one tile, CTU 64, the default toolset plus, in all-intra, VVC's intra
-toolset (MTS, LFNST, ISP, MIP, MRL, CCLM).  All-intra frames are
+one tile, CTU 64, the default toolset plus VVC's intra toolset (MTS,
+LFNST, ISP, MIP, MRL, CCLM) in every slice type and its inter toolset
+(BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR, SMVD; DMVR
+and BDOF in BI-symmetric pictures only).  All-intra frames are
 reconstructed in groups of up to eight per frame-batched wave; one
 temporal layer's B frames are decided frame by frame and reconstructed
 in one frame-batched wave.  The bitstreams are byte-identical to the
@@ -32,14 +34,10 @@ from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
 # EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("tskip", "jccr", "mmvd", "dmvr", "bcw", "amvr", "smvd", "ciip",
-              "sbt", "bdof", "gpm", "affine", "dq", "mtt", "tt", "ibc", "plt",
-              "lmcs", "alf", "mctf")
-_SPS_OFF = ("ts", "jccr", "mmvd", "bcw", "amvr", "smvd", "ciip", "sbt",
-            "dmvr", "bdof", "gpm", "affine", "dq", "mtt", "tt", "ibc", "plt",
-            "lmcs", "alf")
-# the intra toolset: encoded in all-intra only, decoded in every slice type
-_AI_TOOLS = ("mts", "lfnst", "isp", "mip", "mrl", "cclm")
+_OFF_TOOLS = ("tskip", "jccr", "sbt", "dq", "mtt", "tt", "ibc", "plt", "lmcs",
+              "alf", "mctf")
+_SPS_OFF = ("ts", "jccr", "sbt", "dq", "mtt", "tt", "ibc", "plt", "lmcs",
+            "alf")
 # frames per frame-batched wave
 _GROUP = 8
 
@@ -47,9 +45,6 @@ _GROUP = 8
 def check_config(cfg: sseq.EncoderConfig) -> None:
     """Raise ValueError for a configuration outside this slice."""
     bad = [t for t in _OFF_TOOLS if getattr(cfg, t)]
-    if cfg.intra_period != 1:
-        bad += [f"{t} with intra_period={cfg.intra_period}"
-                for t in _AI_TOOLS if getattr(cfg, t)]
     if cfg.tile_cols * cfg.tile_rows != 1:
         bad.append("tiles")
     if cfg.subpic_cols * cfg.subpic_rows != 1:
@@ -62,8 +57,8 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
         raise ValueError("outside the PyTorch port's slice (one tile, CTU "
-                         "64, default toolset; the intra toolset in "
-                         "all-intra only): " + ", ".join(bad))
+                         "64, 8-bit; no SBT, DQ, ALF, MTT, IBC, palette, "
+                         "TS, JCCR, LMCS or MCTF): " + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -77,10 +72,24 @@ def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
                          + ", ".join(bad))
 
 
-def _wave_tools(sps: hls.SPS) -> dict:
-    """frame_wave_batch's intra tool flags from the SPS."""
+def _wave_tools(sps: hls.SPS, sym: bool) -> dict:
+    """frame_wave_batch's tool flags from the SPS; DMVR and BDOF apply to
+    pictures whose two references are POC-symmetric (``sym``)."""
     return dict(mts=sps.mts_enabled, lfnst=sps.lfnst_enabled,
-                cclm=sps.cclm_enabled, mip=sps.mip_enabled)
+                cclm=sps.cclm_enabled, mip=sps.mip_enabled,
+                ciip=sps.ciip_enabled, gpm=sps.gpm_enabled,
+                affine=sps.affine_enabled, dmvr=sps.dmvr_enabled and sym,
+                bdof=sps.bdof_enabled and sym)
+
+
+def _decide_tools(sps: hls.SPS, stype) -> dict:
+    """The decision passes' tool flags of a slice type from the SPS."""
+    kw = dict(mip=sps.mip_enabled, mrl=sps.mrl_enabled, isp=sps.isp_enabled)
+    if stype != hls.SLICE_I:
+        kw.update(ciip=sps.ciip_enabled, affine=sps.affine_enabled)
+    if stype == hls.SLICE_B:
+        kw.update(bcw=sps.bcw_enabled, gpm=sps.gpm_enabled)
+    return kw
 
 
 def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device):
@@ -132,12 +141,14 @@ def _stage(name: str, times, device=None):
 
 
 def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
-                    stage_times=None, layer_times=None):
+                    stage_times=None, layer_times=None, decisions_out=None):
     """Encode planes [[y, cb, cr], ...] with ``cfg``; returns (annex-B
     bytes, cropped recon planes, bits per frame).  stage_times: optional
     dict that receives the wall seconds of each pipeline stage;
     layer_times: optional dict that receives the wall seconds spent on
-    each temporal layer (keys "layer <temporal id>")."""
+    each temporal layer (keys "layer <temporal id>"); decisions_out:
+    optional list that receives each frame's FrameDecisions in coding
+    order, as the reference's does."""
     check_config(cfg)
     dev = devmod.resolve(device)
     h, w = frames[0][0].shape
@@ -162,8 +173,11 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
             pi += len(grp)
             _, stype, _, qpd = grp[0]
             with _stage(f"layer {_tid(stype, qpd)}", layer_times, dev):
-                _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals,
-                              recons, bits, pool, stage_times, dev)
+                decs = _encode_group(frames, cfg, sps, pps, grp, dpb, mot,
+                                     nals, recons, bits, pool, stage_times,
+                                     dev)
+            if decisions_out is not None:
+                decisions_out.extend(decs)
         flat = []
         for n in nals:
             flat.extend(n.result() if hasattr(n, "result") else [n])
@@ -171,6 +185,13 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
         if pool is not None:
             pool.shutdown()
     return bs.write_annexb(flat), recons, bits
+
+
+def _sym(poc: int, refs) -> bool:
+    """True when a picture's two references are POC-symmetric around it
+    (codec.bi_sym of its slice header)."""
+    return (len(refs) == 2 and refs[0] < poc < refs[1]
+            and poc - refs[0] == refs[1] - poc)
 
 
 def _b_group(plan, i, all_intra: bool = False):
@@ -184,18 +205,12 @@ def _b_group(plan, i, all_intra: bool = False):
     p0, s0, r0, q0 = plan[i]
     if s0 != hls.SLICE_B or len(r0) != 2:
         return plan[i:i + 1]
-
-    def sym(e):
-        poc, _, refs, _ = e
-        return (refs[0] < poc < refs[1]
-                and poc - refs[0] == refs[1] - poc)
-
     grp = [plan[i]]
     pocs = {p0}
     for j in range(i + 1, min(len(plan), i + _GROUP)):
         poc, stype, refs, qpd = plan[j]
         if (stype != hls.SLICE_B or len(refs) != 2 or qpd != q0
-                or sym(plan[j]) != sym(plan[i])
+                or _sym(poc, refs) != _sym(p0, r0)
                 or any(r in pocs for r in refs)):
             break
         grp.append(plan[j])
@@ -208,7 +223,7 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
     """Encode plan entries that share slice type and QP and reference no
     picture among themselves: the decisions of every frame, one
     frame-batched wave, then each frame's loop filters and entropy.
-    ``dpb`` is None in all-intra."""
+    ``dpb`` is None in all-intra.  Returns the frames' decisions."""
     qpd = grp[0][3]
     qp = cfg.qp + qpd
     decs, padded_l, frs = [], [], []
@@ -216,20 +231,19 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
         padded = scodec.pad_planes(frames[poc], sps)
         # the ext search runs when a reference is more than a frame away
         me_ext = any(abs(poc - r) > 1 for r in ref_pocs)
+        tools = _decide_tools(sps, stype)
         with _stage("decide", stage_times, dev):
             if stype == hls.SLICE_I:
-                dec = tdecide.decide_frame(
-                    padded[0], qp, cfg.bit_depth, device=dev,
-                    mip=sps.mip_enabled, mrl=sps.mrl_enabled,
-                    isp=sps.isp_enabled)
+                dec = tdecide.decide_frame(padded[0], qp, cfg.bit_depth,
+                                           device=dev, **tools)
             elif stype == hls.SLICE_P:
                 dec = tdecide.decide_frame_p(
                     padded[0], dpb[ref_pocs[0]][0], qp, cfg.bit_depth,
-                    device=dev, me_ext=me_ext)
+                    device=dev, me_ext=me_ext, **tools)
             else:
                 dec = tdecide.decide_frame_b(
                     padded[0], dpb[ref_pocs[0]][0], dpb[ref_pocs[1]][0], qp,
-                    cfg.bit_depth, device=dev, me_ext=me_ext)
+                    cfg.bit_depth, device=dev, me_ext=me_ext, **tools)
         decs.append(dec)
         padded_l.append(padded)
         frs.append(_wave_frame(sps, dec, *padded, dpb, ref_pocs, dev))
@@ -237,7 +251,8 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
         outs = wave.frame_wave_batch(
             frs, frame_w=sps.width, frame_h=sps.height,
             log2_ctu=sps.log2_ctu, qp=qp, bd=cfg.bit_depth, encode=True,
-            rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp), **_wave_tools(sps))
+            rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp),
+            **_wave_tools(sps, _sym(grp[0][0], grp[0][2])))
     # every frame's filters are launched before the group's first entropy
     # job starts on the worker thread, which would slow their many small
     # launches on this one (1080p all-intra on an H100: 9 s against 0.1 s)
@@ -248,6 +263,7 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
                                                           chains):
         _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, out,
                     chain, mot, nals, recons, bits, pool, stage_times, dev)
+    return decs
 
 
 def _filter_frame(cfg, sps, dec, padded, poc, qp, scan_out, dpb,
@@ -430,6 +446,6 @@ def _decode_group(grp, sps, pps_map, dpb, device, stage_times):
         outs = wave.frame_wave_batch(
             frs, frame_w=sps.width, frame_h=sps.height,
             log2_ctu=sps.log2_ctu, qp=qp, bd=sps.bit_depth, encode=False,
-            **_wave_tools(sps))
+            **_wave_tools(sps, scodec.bi_sym(sh)))
     return [(e, _dec_filters(e, sps, list(out[:3]), qp, dpb, stage_times,
                              device)) for e, out in zip(grp, outs)]

@@ -2,8 +2,9 @@
 
 Host-side slot tables (copied), the shared residual/recon chain of one
 component for a batch of blocks, the phase-A pass that reconstructs every
-inter leaf of one size at once (uni- and bi-prediction), and the edge
-padding of the decoded picture buffer.  Device planes carry a leading
+inter leaf of one size at once (uni- and bi-prediction with BCW weights,
+GPM blends, DMVR, BDOF and affine with PROF), and the edge padding of the
+decoded picture buffer.  Device planes carry a leading
 frame axis (F, h, w) and every block its frame index, so one pass serves
 F mutually independent frames.
 """
@@ -12,9 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import const
 from ..kernels import intra_pred, mc, transform
 from ..spec.codec import FrameDecisions
-from ..spec.inter import BCW_DEFAULT, BCW_W, REF_MARGIN
+from ..spec.inter import (AFF_MIN_SIZE, BCW_DEFAULT, DMVR_SUB, MV_FRAC_BITS,
+                          REF_MARGIN)
 from . import plan as planmod
 
 MARGIN = intra_pred.MARGIN
@@ -97,40 +100,80 @@ def _scatter(buf, blocks, f, xs, ys, w: int, h: int, off: int):
 
 
 def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
-                      encode: bool, rdoq: bool = False, lam_rd: int = 0):
-    """Phase A: every inter s-leaf of every frame at once.
+                      encode: bool, rdoq: bool = False, lam_rd: int = 0,
+                      dmvr: bool = False, bdof: bool = False,
+                      gpm: bool = False, affine: bool = False):
+    """Phase A: every inter s-leaf of every frame at once (twin of the
+    reference's _inter_batch_pass).
 
     carry: dict of (F, ...) recon buffers, level planes and source planes
     (updated in place); ib_slots: (B, 14) int32 numpy rows of
     make_slots_split plus the frame index in column 13, whose padded rows
     (x = y = 2^20) are dropped here on the host; refs: the padded (l0 y,
     cb, cr, l1 y, cb, cr) reference planes, each an (F, Hp, Wp) stack.
-    Column 6 picks L0, L1 or their rounded average (BCW's equal weight:
-    the slice has no BCW)."""
+    Column 6 picks L0, L1 or BI; BI is the BCW average by column 7 or,
+    with ``gpm``, the mask blend of partition column 9.  With ``dmvr`` or
+    ``bdof`` the BI leaves of equal weight outside GPM are refined per
+    DMVR_SUB sub-block (mirrored integer offset) and per 4x4 (optical
+    flow); with ``affine`` the leaves flagged in column 10 (s >= 16) are
+    predicted per 4x4 sub-block with PROF from dmv columns 11-12."""
     rows = ib_slots[ib_slots[:, 0] < (1 << 20)]
     if rows.shape[0] == 0:
         return
-    any_l1 = bool((rows[:, 6] != 0).any())
-    slots = torch.as_tensor(np.ascontiguousarray(rows),
-                            device=carry["by"].device)
+    dev = carry["by"].device
+    slots = torch.as_tensor(np.ascontiguousarray(rows), device=dev)
     cs = s // 2
     x, y, f = slots[:, 0], slots[:, 1], slots[:, 13]
+    m0x, m0y, m1x, m1y = (slots[:, c] for c in (2, 3, 4, 5))
     d = slots[:, 6, None, None]
-    wv = BCW_W[BCW_DEFAULT]
     mx = (1 << bd) - 1
+    any_l1 = bool((rows[:, 6] != 0).any())
+    gpm = gpm and bool((rows[:, 9] > 0).any())
+    w = const(mc.BCW_W_NP, dev)[slots[:, 7].clamp(0, 2).long()][
+        :, None, None]
+    gw_l = const(mc.gpm_masks(s), dev)[slots[:, 9].clamp(0, 64).long()] \
+        if gpm else None
+
+    def blend(p0, p1, gwm):
+        avg = ((w * p0 + (8 - w) * p1 + 4) >> 3).clamp(0, mx)
+        if gwm is None:
+            return avg
+        gb = ((gwm * p0 + (8 - gwm) * p1 + 4) >> 3).clamp(0, mx)
+        return torch.where(slots[:, 9, None, None] > 0, gb, avg)
 
     def pred(ref0, ref1, px, py, sz, luma):
         fn = mc.mc_luma_block if luma else mc.mc_chroma_block
-        p0 = fn(ref0, px, py, sz, slots[:, 2], slots[:, 3], bd, f=f)
+        p0 = fn(ref0, px, py, sz, m0x, m0y, bd, f=f)
         if not any_l1:
             return p0
-        p1 = fn(ref1, px, py, sz, slots[:, 4], slots[:, 5], bd, f=f)
-        avg = ((wv * p0 + (8 - wv) * p1 + 4) >> 3).clamp(0, mx)
-        return torch.where(d == 0, p0, torch.where(d == 1, p1, avg))
+        p1 = fn(ref1, px, py, sz, m1x, m1y, bd, f=f)
+        gwm = None if gw_l is None else (gw_l if luma
+                                         else gw_l[:, ::2, ::2])
+        return torch.where(d == 0, p0, torch.where(d == 1, p1,
+                                                   blend(p0, p1, gwm)))
 
     pred_y = pred(refs[0], refs[3], x, y, s, True)
     pred_cb = pred(refs[1], refs[4], x // 2, y // 2, cs, False)
     pred_cr = pred(refs[2], refs[5], x // 2, y // 2, cs, False)
+    dmvr = dmvr and s >= DMVR_SUB     # DMVR refines 16x16 sub-blocks
+    if dmvr or bdof:
+        # BI leaves of equal weight outside GPM (the others keep the
+        # prediction above, which the reference's sub-block path equals)
+        ri = np.nonzero((rows[:, 6] == 2) & (rows[:, 7] == BCW_DEFAULT)
+                        & (rows[:, 9] == 0))[0]
+        if ri.size:
+            _refine_bi(pred_y, pred_cb, pred_cr, slots,
+                       torch.as_tensor(ri, device=dev), refs, s,
+                       DMVR_SUB if dmvr else s, dmvr, bdof, bd)
+    if affine and s >= AFF_MIN_SIZE:
+        for lst in (0, 1):
+            # L0 for direction 0, else L1, as in the reference
+            ai = np.nonzero((rows[:, 10] > 0)
+                            & ((rows[:, 6] != 0) == bool(lst)))[0]
+            if ai.size:
+                _affine_override(pred_y, pred_cb, pred_cr, slots,
+                                 torch.as_tensor(ai, device=dev),
+                                 refs[3 * lst:3 * lst + 3], s, bd)
     ry, lvy = _component(carry["sy"], pred_y, f, x, y, s, s, qp, bd, encode,
                          rdoq, lam_rd)
     rcb, lvcb = _component(carry["scb"], pred_cb, f, x // 2, y // 2, cs, cs,
@@ -144,6 +187,67 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
         _scatter(carry["ly"], lvy, f, x, y, s, s, 0)
         _scatter(carry["lcb"], lvcb, f, x // 2, y // 2, cs, cs, 0)
         _scatter(carry["lcr"], lvcr, f, x // 2, y // 2, cs, cs, 0)
+
+
+def _refine_bi(pred_y, pred_cb, pred_cr, slots, ri, refs, s: int, sub: int,
+               dmvr: bool, bdof: bool, bd: int):
+    """DMVR / BDOF predictions of the BI leaves ``ri`` (rows of ``slots``,
+    all of equal weight and outside GPM), written into the prediction
+    batches in place: per sub x sub sub-block the mirrored integer offset
+    (with ``dmvr``), the (sub+2)-extended luma predictions, the BDOF
+    blend (with ``bdof``, else the rounded average), and the chroma
+    average at the offset MVs."""
+    sl = slots[ri]
+    x, y, f = sl[:, 0], sl[:, 1], sl[:, 13]
+    m0x, m0y, m1x, m1y = (sl[:, c] for c in (2, 3, 4, 5))
+    mx = (1 << bd) - 1
+    cs2 = sub // 2
+    for sy0 in range(0, s, sub):
+        for sx0 in range(0, s, sub):
+            a0x, a0y, a1x, a1y = m0x, m0y, m1x, m1y
+            if dmvr:
+                off = mc.dmvr_offset(refs[0], refs[3], x + sx0, y + sy0, sub,
+                                     m0x, m0y, m1x, m1y, f=f)
+                ox = off[:, 0] << MV_FRAC_BITS
+                oy = off[:, 1] << MV_FRAC_BITS
+                a0x, a0y, a1x, a1y = m0x + ox, m0y + oy, m1x - ox, m1y - oy
+            p0e = mc.mc_luma_block(refs[0], x + sx0 - 1, y + sy0 - 1,
+                                   sub + 2, a0x, a0y, bd, f=f)
+            p1e = mc.mc_luma_block(refs[3], x + sx0 - 1, y + sy0 - 1,
+                                   sub + 2, a1x, a1y, bd, f=f)
+            if bdof:
+                bi = mc.bdof_blend(p0e, p1e, bd)
+            else:
+                bi = ((4 * p0e[:, 1:-1, 1:-1] + 4 * p1e[:, 1:-1, 1:-1] + 4)
+                      >> 3).clamp(0, mx)
+            pred_y[ri, sy0:sy0 + sub, sx0:sx0 + sub] = bi
+            for pc, r0, r1 in ((pred_cb, refs[1], refs[4]),
+                               (pred_cr, refs[2], refs[5])):
+                c0 = mc.mc_chroma_block(r0, (x + sx0) // 2, (y + sy0) // 2,
+                                        cs2, a0x, a0y, bd, f=f)
+                c1 = mc.mc_chroma_block(r1, (x + sx0) // 2, (y + sy0) // 2,
+                                        cs2, a1x, a1y, bd, f=f)
+                pc[ri, sy0 // 2:sy0 // 2 + cs2, sx0 // 2:sx0 // 2 + cs2] = \
+                    ((4 * c0 + 4 * c1 + 4) >> 3).clamp(0, mx)
+
+
+def _affine_override(pred_y, pred_cb, pred_cr, slots, ai, refs3, s: int,
+                     bd: int):
+    """Affine predictions (per-4x4 MC with PROF in luma) of the leaves
+    ``ai`` from one list's (y, cb, cr) references, written into the
+    prediction batches in place; CPMV0 is the list's MV (columns 2-3 for
+    direction 0, else 4-5), the dmv columns 11-12."""
+    sl = slots[ai]
+    x, y, f = sl[:, 0], sl[:, 1], sl[:, 13]
+    l1 = sl[:, 6] != 0
+    bmx = torch.where(l1, sl[:, 4], sl[:, 2])
+    bmy = torch.where(l1, sl[:, 5], sl[:, 3])
+    amx, amy = sl[:, 11], sl[:, 12]
+    pred_y[ai] = mc.affine_pred_luma(refs3[0], x, y, s, bmx, bmy, amx, amy,
+                                     bd, f=f)
+    for pc, r in ((pred_cb, refs3[1]), (pred_cr, refs3[2])):
+        pc[ai] = mc.affine_pred_chroma(r, x // 2, y // 2, s // 2, bmx, bmy,
+                                       amx, amy, s, bd, f=f)
 
 
 def _slab_strides(frame_h: int):

@@ -6,7 +6,8 @@ availability).  The device then runs one batch per (level, leaf class)
 and scatters the block results into the recon buffers.  Phase A (every
 inter leaf, which depends on nothing in the current frame) runs first.
 One engine: an eager loop over the schedule, with the intra toolset
-(MIP, MRL, ISP, MTS, LFNST, CCLM) on the phase-B leaves.  It runs F
+(MIP, MRL, ISP, MTS, LFNST, CCLM) and CIIP on the phase-B leaves and
+VVC's inter toolset (BCW, GPM, DMVR, BDOF, affine) in phase A.  It runs F
 mutually independent frames at once (one temporal layer's B frames): the
 buffers carry a leading frame axis, every row its frame index, and the
 frames' schedules merge by (level, class), so one launch sequence covers
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from ..core import rom
-from ..kernels import intra_pred, transform
+from ..device import const
+from ..kernels import intra_pred, mc, transform
 from ..spec.codec import isp_kernels, isp_parts
 from . import plan as planmod
 from . import recon
@@ -382,6 +384,59 @@ def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
     _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode)
 
 
+def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
+                frame_w: int, frame_h: int, log2_ctu: int, bd: int,
+                encode: bool, rdoq: bool):
+    """One dependency level's CIIP s-leaves: the merge candidate's MC
+    prediction (L0, L1 or the BCW-weighted average) averaged with the
+    planar intra prediction from the reconstructed neighbours, in luma
+    and in both chroma components, then coded and reconstructed (twin of
+    the reference's _ciip_batch).  rows: (k, 17) device rows; refs: the
+    six (F, Hp, Wp) padded reference stacks of phase A."""
+    x, y, f = rows[:, 1], rows[:, 2], rows[:, 16]
+    mvx, mvy, m1x, m1y = rows[:, 4], rows[:, 5], rows[:, 11], rows[:, 12]
+    dd = rows[:, 13, None, None]
+    w = const(mc.BCW_W_NP, rows.device)[rows[:, 14].clamp(0, 2).long()][
+        :, None, None]
+    n_ctu_x = frame_w >> log2_ctu
+    cs = s // 2
+    mx = (1 << bd) - 1
+    F = carry["bcb"].shape[0]
+
+    def mcpred(r0, r1, px, py, sz, luma):
+        fn = mc.mc_luma_block if luma else mc.mc_chroma_block
+        p0 = fn(r0, px, py, sz, mvx, mvy, bd, f=f)
+        p1 = fn(r1, px, py, sz, m1x, m1y, bd, f=f)
+        avg = ((w * p0 + (8 - w) * p1 + 4) >> 3).clamp(0, mx)
+        return torch.where(dd == 0, p0, torch.where(dd == 1, p1, avg))
+
+    def planar(buf, px, py, fr, sz, luma):
+        top, left = intra_pred.build_references(
+            buf, px, py, s=sz, is_luma=luma,
+            frame_w=frame_w if luma else frame_w // 2,
+            frame_h=frame_h if luma else frame_h // 2, n_ctu_x=n_ctu_x,
+            log2_ctu=log2_ctu, bd=bd, f=fr)
+        return intra_pred.predict(top, left,
+                                  torch.full_like(px, rom.PLANAR_IDX),
+                                  s=sz, is_luma=luma, bd=bd)
+
+    pred_y = ((mcpred(refs[0], refs[3], x, y, s, True)
+               + planar(carry["by"], x, y, f, s, True) + 1) >> 1).clamp(0,
+                                                                      mx)
+    rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
+                               encode, rdoq, lam_rd)
+    # Cb and Cr as one batch of 2B rows over the stacked chroma planes
+    x2, y2, f2 = (torch.cat([x // 2, x // 2]), torch.cat([y // 2, y // 2]),
+                  torch.cat([f, f + F]))
+    mc_c = torch.cat([mcpred(refs[1], refs[4], x // 2, y // 2, cs, False),
+                      mcpred(refs[2], refs[5], x // 2, y // 2, cs, False)])
+    pred_c = ((mc_c + planar(carry["bc"], x2, y2, f2, cs, False) + 1)
+              >> 1).clamp(0, mx)
+    rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
+                               bd, encode, rdoq, lam_rd)
+    _put_leaf(carry, f, x, y, s, rec_y, lev_y, (rec_c, lev_c, None), encode)
+
+
 # ---------------------------------------------------------------------------
 # frame loop
 # ---------------------------------------------------------------------------
@@ -414,15 +469,20 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                      bd: int, encode: bool, log2_ctu: int = 6,
                      rdoq: bool = False, lam_rd: int = 0, mts: bool = False,
                      lfnst: bool = False, cclm: bool = False,
-                     mip: bool = False):
+                     mip: bool = False, ciip: bool = False,
+                     dmvr: bool = False, bdof: bool = False,
+                     gpm: bool = False, affine: bool = False):
     """Reconstruct F mutually independent frames of one slice type and QP
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
     frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter]} as
     frame_wave takes them; the planes are int32 tensors on the device all
     frames share.  mts, lfnst, cclm, mip: the SPS intra tools (MRL and
-    ISP are read from the slot rows).  Returns a list of per-frame
-    9-tuples, each equal to frame_wave's for that frame alone."""
+    ISP are read from the slot rows); ciip: the CIIP leaf class of phase
+    B; dmvr, bdof, gpm, affine: phase A's inter tools (DMVR and BDOF only
+    for BI-symmetric frames, as the callers gate them).  Returns a list
+    of per-frame 9-tuples, each equal to frame_wave's for that frame
+    alone."""
     F = len(frames_in)
     dev = frames_in[0]["py"].device
     h2, w2 = frame_h // 2, frame_w // 2
@@ -448,6 +508,7 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         mtsp=z(frame_h // 8, frame_w // 8),
         lfnstp=z(frame_h // 8, frame_w // 8),
         cmodep=z(frame_h // 8, frame_w // 8))
+    refs = None
     if frames_in[0].get("refs") is not None:
         # a P frame's three planes serve both lists
         six = [tuple(fr["refs"]) * (2 if len(fr["refs"]) == 3 else 1)
@@ -460,7 +521,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                                          np.int32)], axis=1)
                  for f, fr in enumerate(frames_in)])
             recon._inter_batch_pass(carry, rows, refs, s_sz, qp, bd, encode,
-                                    rdoq, lam_rd)
+                                    rdoq, lam_rd, dmvr=dmvr, bdof=bdof,
+                                    gpm=gpm, affine=affine)
 
     sched = build_schedule_batch([fr["slots"] for fr in frames_in], frame_h,
                                  frame_w)
@@ -471,7 +533,7 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         all_rows = torch.as_tensor(
             np.concatenate([rows for _, rows in sched]), device=dev)
     kw = dict(frame_w=frame_w, frame_h=frame_h, log2_ctu=log2_ctu, bd=bd,
-              encode=encode, rdoq=rdoq, cclm=cclm)
+              encode=encode, rdoq=rdoq)
     global batches
     batches += len(sched)
     o = 0
@@ -480,9 +542,12 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         o += rows.shape[0]
         if kind == "intra":
             _intra_batch(carry, rt, rows, qp, lam_rd, s=w, mts=mts,
-                         lfnst=lfnst, mip=mip, **kw)
+                         lfnst=lfnst, cclm=cclm, mip=mip, **kw)
         elif kind == "isp":
-            _isp_batch(carry, rt, rows, qp, lam_rd, s=w, d=d, **kw)
+            _isp_batch(carry, rt, rows, qp, lam_rd, s=w, d=d, cclm=cclm,
+                       **kw)
+        elif kind == "ciip" and ciip and refs is not None:
+            _ciip_batch(carry, rt, refs, qp, lam_rd, s=w, **kw)
         else:
             raise ValueError(f"leaf class {kind!r} is not in this slice")
 
