@@ -6,8 +6,11 @@ Phases, in order; any failure exits non-zero:
 
 1. build the hand-written kernels and hold each against its plain PyTorch
    twin on the card at the main path's shapes (1088x1920 dense motion
-   search, 7 and 11 keys, noisy, flat and wrapping-lam inputs), with the
-   compiler's register report, the kernel's dy split and timings;
+   search, 7 and 11 keys, noisy, flat and wrapping-lam inputs; the
+   dependent-quantization trellis on every transform-block shape of the
+   path, SBT halves and ISP stripes included, on noisy, all-zero,
+   saturated and flat inputs at qp 22 and 37), with the compiler's
+   register report, the kernel's dy split and timings;
 2. exactness at a small size: a 3-frame 64x96 IPPP clip encoded on the
    card must equal the copied spec model's bitstream, decode on the card
    with hashes verified, and decode in the spec model; the transforms on
@@ -17,7 +20,7 @@ Phases, in order; any failure exits non-zero:
    {B1, B3} layer) encoded on the card must equal the spec model's
    bitstream; it decodes on the card and in the spec model, hashes
    verified;
-3. low-delay P at full size: 4 frames of 1080p IPPP (1 I + 3 P) at QP32
+3. low-delay P at full size: 2 frames of 1080p IPPP (1 I + 1 P) at QP32
    with WPP, encoded and decoded on the card, hashes verified, with the
    kernel launch counts of that run, the wall time per pipeline stage
    and the card's busy share sampled by nvidia-smi;
@@ -39,16 +42,19 @@ Phases, in order; any failure exits non-zero:
    recon == decoded, with stage times, fps, the card's busy share and
    peak memory; me_sad is launched 0 times on these paths;
 6. random access with VVC's inter toolset (BCW, CIIP, GPM, affine with
-   PROF, DMVR, BDOF, MMVD, AMVR, SMVD) and the intra tools in P and B
-   frames: (6a) a 5-frame 64x192 GOP4 clip whose panels call for GPM,
-   affine and CIIP, with every tool of the slice on, encoded on the card
-   must equal the copied spec model's bitstream and decode on the card
-   and in the spec model, hashes verified, and each tool must be chosen;
-   the inter tools on the card must equal the CPU path on worst-case
-   batches; (6b) bench config #4 without SBT, DQ and ALF, 5 frames of
-   1080p RA GOP4 QP32 with WPP: hashes verified, recon == decoded, 7
-   me_sad launches, with stage and per-layer times, fps, the card's busy
-   share and peak memory.
+   PROF, DMVR, BDOF, MMVD, AMVR, SMVD, SBT), dependent quantization, ALF
+   with CC-ALF and the intra tools in P and B frames: (6a) a 5-frame
+   64x256 GOP4 clip whose panels call for GPM, affine, CIIP and ALF,
+   with every tool of the slice on, encoded on the card must equal the
+   copied spec model's bitstream and decode on the card and in the spec
+   model, hashes verified, and each tool must be chosen (SBT index > 0,
+   the trellis launched, ALF on in some CTUs); the inter tools, SBT and
+   DQ on the card must equal the CPU path on worst-case batches; (6b)
+   bench config #4 whole, 5 frames of 1080p RA GOP4 QP32 with WPP and
+   every tool of the slice, SBT, DQ and ALF included: hashes verified,
+   recon == decoded, 7 me_sad launches and the trellis launched, with
+   stage (ALF apart) and per-layer times, fps, the card's busy share
+   and peak memory.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -56,9 +62,11 @@ limit, and the result object.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -71,6 +79,14 @@ INT32_OPS_PER_S = 67e12 / 4
 FP32_ADDS_PER_S = 67e12 / 2
 FP16_ADDS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+
+# int32 operations of the dependent-quantization trellis per (transform
+# block, position): the forward scale and both floor levels (7), the zero
+# level's step cost (3); per quantizer the even and odd levels (4), their
+# two step costs (21 each: dequantise 9, distortion 4, rate 5, cost 3)
+# and the even choice (3); per target state two sums, a compare and two
+# selects (5 each); the renormalisation (11); the trace back (3)
+DQ_OPS_PER_POS = 7 + 3 + 2 * (4 + 2 * 21 + 3) + 4 * 5 + 11 + 3
 
 
 def synth_frames(n, h, w, seed=0):
@@ -154,6 +170,96 @@ def me_sad_bound_ms(H: int, W: int, keys, max_sample: int):
     return bytes_ms, "bytes"
 
 
+def _dq_cases(rng, h: int, w: int):
+    """(n, B) int32 absolute coefficients in walk order for (h, w) blocks:
+    noisy blocks with a decaying spectrum, all-zero, saturated (32768)
+    and flat ones (every trellis candidate ties)."""
+    n = h * w
+    noisy = np.abs(rng.normal(0, 900, (n, 24))
+                   / (1 + np.arange(n)[:, None] / 6.0)).astype(np.int32)
+    flat = np.repeat(np.asarray([[100, 37, 1, 6000]], np.int32), n, 0)
+    edge = np.stack([np.zeros(n, np.int32), np.full(n, 32768, np.int32),
+                     rng.choice([0, 32768], n).astype(np.int32)], 1)
+    return np.ascontiguousarray(np.concatenate([noisy, flat, edge], 1))
+
+
+def dq_bound_ms(positions: int):
+    """(least time in ms, what bounds it) of the trellis over ``positions``
+    (block, position) pairs: DQ_OPS_PER_POS int32 operations each against
+    the coefficient read once and the level written once."""
+    ops_ms = DQ_OPS_PER_POS * positions / INT32_OPS_PER_S * 1e3
+    bytes_ms = 8 * positions / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def phase_dq_kernel(dev):
+    """The trellis kernel against its twin on the card (tolerance 0) on
+    every transform-block shape of the path (4x4 chroma of 8x8 leaves
+    up to 32x32, the SBT halves, the ISP stripes, and 64x64 and its
+    halves), then against its twin and timed at a 1080p frame's worth
+    of 8x8, 16x16 and 32x32 blocks (one phase-A batch of config #4 at
+    most)."""
+    from vvctpu_torch.kernels import dq as kdq
+    from vvctpu_torch.kernels import transform as ktf
+    from vvctpu_torch.spec.transform import lambda_rd_int
+    t0 = time.time()
+    log = kdq.build(verbose=True)
+    print(f"[1] dq_trellis built in {time.time() - t0:.1f} s")
+    for line in log.splitlines():
+        if any(w in line for w in ("Compiling", "registers", "spill")):
+            print(f"[1]   {line.strip()}")
+    shapes = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (8, 4), (4, 8),
+              (16, 8), (8, 16), (32, 16), (16, 32), (64, 32), (32, 64),
+              (4, 16), (16, 4), (8, 32), (32, 8)]
+    rng = np.random.default_rng(8)
+    err, n_cases = 0, 0
+    for h, w in shapes:
+        a = torch.as_tensor(_dq_cases(rng, h, w), device=dev)
+        for qp in (22, 37):
+            p = ktf.dq_params(h, w, qp, lambda_rd_int(qp))
+            got = kdq.dq_trellis(a, *p)
+            want = kdq.quantize_dq_reference(a, *p)
+            torch.cuda.synchronize()
+            e = int((got - want).abs().max())
+            if e != 0:
+                raise AssertionError(f"dq_trellis differs from its twin at "
+                                     f"{h}x{w} qp {qp}: max abs err {e}")
+            err = max(err, e)
+            n_cases += 1
+    print(f"[1] dq_trellis: equal to twin (tolerance 0, max abs err {err}) "
+          f"on {n_cases} (shape, qp) batches of {a.shape[1]} blocks: "
+          f"{', '.join(f'{h}x{w}' for h, w in shapes)}")
+    ms = plain = 0.0
+    positions = 0
+    for s in (8, 16, 32):
+        B = (1088 // s) * (1920 // s)
+        a = torch.as_tensor(np.abs(rng.normal(0, 900, (s * s, B)) / (
+            1 + np.arange(s * s)[:, None] / 6.0)).astype(np.int32),
+            device=dev)
+        p = ktf.dq_params(s, s, 32, lambda_rd_int(32))
+        e = int((kdq.dq_trellis(a, *p)
+                 - kdq.quantize_dq_reference(a, *p)).abs().max())
+        if e != 0:
+            raise AssertionError(f"dq_trellis differs from its twin on {B} "
+                                 f"blocks of {s}x{s}: max abs err {e}")
+        err = max(err, e)
+        k_ms = cuda_ms(lambda: kdq.dq_trellis(a, *p), 20)
+        p_ms = cuda_ms(lambda: kdq.quantize_dq_reference(a, *p), 1)
+        b_ms, by = dq_bound_ms(s * s * B)
+        print(f"[1]   dq_trellis {B} blocks of {s}x{s}: equal to twin "
+              f"(tolerance 0, max abs err {e}); kernel {k_ms:.4f} ms; "
+              f"twin {p_ms:.1f} ms; bound {b_ms:.4f} ms ({by}), "
+              f"{100 * b_ms / k_ms:.2f} % of it")
+        ms, plain, positions = ms + k_ms, plain + p_ms, positions + s * s * B
+    bound, by = dq_bound_ms(positions)
+    print(f"[1] dq_trellis over the three batches: kernel {ms:.4f} ms; twin "
+          f"{plain:.1f} ms; bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.2f} % of it")
+    return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound,
+                bound_by=by)
+
+
 def phase_kernels(dev):
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.spec.decide import lambda_satd_fp
@@ -213,36 +319,80 @@ def _same_planes(*seqs):
                for a, b in zip(x, y) for i in range(3))
 
 
+def _spec_clips():
+    """The small clips held against the copied spec model: name ->
+    (frames, EncoderConfig keywords)."""
+    return {
+        "ippp": (motion_frames(), dict(qp=32, intra_period=0)),
+        "gop4": (motion_frames(5), dict(qp=32, intra_period=0, gop=4)),
+        "ai_tools": (synth_frames(3, 64, 96, seed=2), dict(qp=32, **AI_TOOLS)),
+        "ra_tools": (tool_frames(), dict(qp=27, intra_period=0, gop=4,
+                                         isp=True, mrl=True, sbt=True,
+                                         dq=True, alf=True, **RA_TOOLS)),
+    }
+
+
+def _spec_run(name):
+    """The spec model's encode of clip ``name`` and its decode with the
+    hashes verified: (bytes, decisions, decoded planes, seconds taken).
+    Host work only, so main() runs it in worker processes beside the
+    card's phases."""
+    from vvctpu_torch.spec import sequence as tseq
+    t0 = time.time()
+    frames, kw = _spec_clips()[name]
+    decs = []
+    data, _, _ = tseq.encode_sequence(frames, tseq.EncoderConfig(**kw),
+                                      decisions_out=decs)
+    out, _ = tseq.decode_sequence(data, check_hash=True)
+    return data, decs, out, time.time() - t0
+
+
+# clip name -> future of _spec_run, filled by main(); a phase run on its
+# own computes its spec results in place
+_SPEC = {}
+# seconds the spec model's runs took in the workers, and seconds the
+# card's phases waited for them
+_SPEC_T = {"work": 0.0, "wait": 0.0}
+
+
+def _spec(name):
+    fut = _SPEC.get(name)
+    if fut is None:
+        return _spec_run(name)[:3]
+    t0 = time.time()
+    data, decs, out, took = fut.result()
+    _SPEC_T["wait"] += time.time() - t0
+    _SPEC_T["work"] += took
+    return data, decs, out
+
+
+def _held_to_spec(tag, dev, name):
+    """Encode clip ``name`` on the card, hold its bytes against the spec
+    model's and decode it on the card; the card's recon, the card's
+    decoded planes and the spec model's decoded planes must agree.
+    Returns (bytes, the card's decisions, the spec model's decisions)."""
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import sequence as tseq
+    frames, kw = _spec_clips()[name]
+    decs = []
+    data, recons, _ = tenc.encode_sequence(
+        frames, tseq.EncoderConfig(**kw), device=dev, decisions_out=decs)
+    sdata, sdecs, sout = _spec(name)
+    if data != sdata:
+        raise AssertionError(f"{tag}: card bitstream != spec model's")
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
+    if not _same_planes(recons, out, sout):
+        raise AssertionError(f"{tag}: recon/decoder mismatch")
+    return data, decs, sdecs
+
+
 def phase_small(dev):
     from vvctpu_torch.core import rom
     from vvctpu_torch.kernels import transform as ktf
-    from vvctpu_torch.pipeline import encoder as tenc
-    from vvctpu_torch.spec import sequence as tseq
-    frames = motion_frames()
-    cfg = tseq.EncoderConfig(qp=32, intra_period=0)
-    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev)
-    sdata, _, _ = tseq.encode_sequence(frames, cfg)
-    if data != sdata:
-        raise AssertionError("64x96 IPPP: card bitstream != spec model's")
-    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
-    sout, _ = tseq.decode_sequence(data, check_hash=True)
-    for a, b, c in zip(recons, out, sout):
-        for i in range(3):
-            if not (np.array_equal(a[i], b[i]) and np.array_equal(b[i], c[i])):
-                raise AssertionError("64x96 IPPP: recon/decoder mismatch")
+    data, _, _ = _held_to_spec("64x96 IPPP", dev, "ippp")
     print(f"[2] 64x96 IPPP: {len(data)} bytes equal to the spec model; "
           "card and spec decoders verified hashes")
-
-    frames = motion_frames(5)
-    cfg = tseq.EncoderConfig(qp=32, intra_period=0, gop=4)
-    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev)
-    sdata, _, _ = tseq.encode_sequence(frames, cfg)
-    if data != sdata:
-        raise AssertionError("64x96 GOP4: card bitstream != spec model's")
-    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
-    sout, _ = tseq.decode_sequence(data, check_hash=True)
-    if not _same_planes(recons, out, sout):
-        raise AssertionError("64x96 GOP4: recon/decoder mismatch")
+    data, _, _ = _held_to_spec("64x96 GOP4", dev, "gop4")
     print(f"[2b] 64x96 GOP4 (I0 P4 B2 B1 B3): {len(data)} bytes equal to "
           "the spec model; card and spec decoders verified hashes")
 
@@ -296,16 +446,18 @@ def _stages_line(tag, times, wall):
 
 
 def _run_full(dev, frames, cfg, decisions_out=None):
-    """Encode and decode ``frames`` on the card with me_sad's count set to
-    0 just before; returns the run's numbers (recon == decoded and the
+    """Encode and decode ``frames`` on the card with the kernels' counts
+    set to 0 just before; returns the run's numbers (recon == decoded and the
     decoder's hash check are enforced here).  decisions_out: as in
     encode_sequence."""
+    from vvctpu_torch.kernels import dq as kdq
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.pipeline import encoder as tenc
     from vvctpu_torch.spec import sequence as tseq
     from vvctpu_torch.pipeline import wave
     r = dict(enc_t={}, dec_t={}, enc_l={}, dec_l={})
     kme.launches = 0
+    kdq.launches = 0
     wave.batches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -325,6 +477,7 @@ def _run_full(dev, frames, cfg, decisions_out=None):
         torch.cuda.synchronize()
         r["t_dec"] = time.time() - t0
     r["launches"] = kme.launches
+    r["dq_launches"] = kdq.launches
     r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if not _same_planes(recons, out):
         raise AssertionError("encoder recon != decoder output")
@@ -332,7 +485,8 @@ def _run_full(dev, frames, cfg, decisions_out=None):
     for p in r["psnr"]:
         if not np.isfinite(p) or p < 25.0:
             raise AssertionError(f"implausible Y-PSNR {p}")
-    r.update(bits=bits, busy_enc=busy_enc, busy_dec=busy_dec)
+    r.update(bits=bits, busy_enc=busy_enc, busy_dec=busy_dec,
+             alf_ctus=_alf_ctus(data))
     return r
 
 
@@ -351,14 +505,15 @@ def _report(tag, r, n):
               f"mean): {b.share:.1f} % over {b.samples} samples")
     print(f"{tag} phase-B leaf batches per encode and per decode: "
           f"{r['batches']}")
-    print(f"{tag} me_sad launches on this path: {r['launches']}; peak "
-          f"device memory {r['peak_gib']:.2f} GiB "
-          "(torch.cuda.max_memory_allocated)")
+    print(f"{tag} me_sad launches on this path: {r['launches']}; "
+          f"dq_trellis launches: {r['dq_launches']}; peak device memory "
+          f"{r['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated)")
 
 
 def phase_full(dev):
     from vvctpu_torch.spec import sequence as tseq
-    n = 4
+    # 2 frames, for the script's time limit (4 frames took 76-100 s)
+    n = 2
     r = _run_full(dev, synth_frames(n, 1080, 1920),
                   tseq.EncoderConfig(qp=32, intra_period=0, wpp=True))
     if r["launches"] != n - 1:
@@ -462,6 +617,9 @@ def _tool_worst_cases(dev):
         allow = np.arange(24) % 3 > 0
         n += _card_eq(f"choose_tx {s}", dev, ktf.choose_tx, r, s, 32, 347, md,
                       8, mts=True, lfnst=True, rdoq=True, allow=allow)
+        n += _card_eq(f"choose_tx dq {s}", dev, ktf.choose_tx, r, s, 32, 347,
+                      md, 8, mts=True, lfnst=True, rdoq=True, allow=allow,
+                      dq=True)
     # MIP on saturated boundaries, every id
     for s in (8, 16, 32):
         top = rng.choice([0, 255], (16, 2 * s + 1)).astype(np.int32)
@@ -491,20 +649,8 @@ def _tool_worst_cases(dev):
 def phase_ai(dev):
     """Phase 5: all-intra with the intra toolset; returns me_sad's
     launches on the two full-size paths (0 expected)."""
-    from vvctpu_torch.pipeline import encoder as tenc
     from vvctpu_torch.spec import sequence as tseq
-    frames = synth_frames(3, 64, 96, seed=2)
-    cfg = tseq.EncoderConfig(qp=32, **AI_TOOLS)
-    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev)
-    decs = []
-    sdata, _, _ = tseq.encode_sequence(frames, cfg, decisions_out=decs)
-    if data != sdata:
-        raise AssertionError("64x96 AI six tools: card bitstream != spec "
-                             "model's")
-    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
-    sout, _ = tseq.decode_sequence(data, check_hash=True)
-    if not _same_planes(recons, out, sout):
-        raise AssertionError("64x96 AI six tools: recon/decoder mismatch")
+    data, _, decs = _held_to_spec("64x96 AI six tools", dev, "ai_tools")
     used = {"MIP": any((d.modes8 >= 67).any() for d in decs),
             "MRL": any(d.mrl8.any() for d in decs),
             "ISP": any(d.isp8.any() for d in decs),
@@ -550,11 +696,13 @@ RA_TOOLS = dict(mts=True, lfnst=True, cclm=True, mip=True, mmvd=True,
 
 
 def tool_frames(n=5, seed=1):
-    """A 64x192 clip whose three 64x64 panels call for the inter tools:
-    an occlusion across a diagonal edge, each reference matching one side
+    """A 64x256 clip whose four 64x64 panels call for the tools: an
+    occlusion across a diagonal edge, each reference matching one side
     (GPM); a slow zoom with rotation (affine); flat-DC noise shifting
-    under a quadratic brightness drift (CIIP).  The panels are the
-    reference's test generators for those tools."""
+    under a quadratic brightness drift (CIIP); a fine moving
+    sine-product texture with strong chroma texture, whose coding error
+    ALF recovers.  The first three panels are the reference's test
+    generators for those tools."""
     h = w = 64
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
@@ -586,9 +734,18 @@ def tool_frames(n=5, seed=1):
              for t in range(n)]
     cb = (128 + 20 * np.sin(xx[::2, ::2] / 6.0)).astype(np.int32)
     cr = (128 - 18 * np.cos(yy[::2, ::2] / 5.0)).astype(np.int32)
-    return [[np.concatenate([gpm[t], zoom[t], drift[t]], 1).astype(np.int32),
-             np.concatenate([cb, cb, np.full_like(cb, 118 + 4 * t)], 1),
-             np.concatenate([cr, cr, np.full_like(cr, 134 - 3 * t)], 1)]
+    rng = np.random.default_rng(seed + 2)
+    fine = [[(128 + 90 * np.sin((xx + 2 * t) / 3.0) * np.cos((yy - t) / 4.0)
+              + rng.integers(-3, 4, (h, w))).clip(0, 255),
+             (128 + 60 * np.sin((xx[::2, ::2] + t) / 2.5)).astype(np.int32),
+             (128 - 60 * np.cos((yy[::2, ::2] + t) / 2.0)).astype(np.int32)]
+            for t in range(n)]
+    return [[np.concatenate([gpm[t], zoom[t], drift[t], fine[t][0]],
+                            1).astype(np.int32),
+             np.concatenate([cb, cb, np.full_like(cb, 118 + 4 * t),
+                             fine[t][1]], 1),
+             np.concatenate([cr, cr, np.full_like(cr, 134 - 3 * t),
+                             fine[t][2]], 1)]
             for t in range(n)]
 def _phase_a_out(refs, rows, s, flags):
     """Phase A of one leaf size on a zero carry (frame axis of 1, on the
@@ -608,17 +765,19 @@ def _phase_a_out(refs, rows, s, flags):
                  bcr=z(1, h // 2 + 1 + m, w // 2 + 1 + m), ly=z(1, h, w),
                  lcb=z(1, h // 2, w // 2), lcr=z(1, h // 2, w // 2),
                  sy=src, scb=src[:, ::2, ::2].contiguous(),
-                 scr=src[:, 1::2, 1::2].contiguous())
+                 scr=src[:, 1::2, 1::2].contiguous(),
+                 sbtp=z(1, h // 8, w // 8))
     recon._inter_batch_pass(carry, rows, [r[None] for r in refs], s, 32, 8,
                             True, rdoq=True, lam_rd=347, **flags)
-    return carry["by"], carry["ly"], carry["bcb"], carry["lcr"]
+    return (carry["by"], carry["ly"], carry["bcb"], carry["lcr"],
+            carry["sbtp"])
 
 
 def _inter_tool_worst_cases(dev):
     """The inter tools on the card against the CPU path on worst-case
     batches: saturated 0/255 references, flat references where every
-    candidate ties, negative MVs and MVs past the padded plane; returns
-    the number of cases."""
+    candidate ties, negative MVs and MVs past the padded plane, phase A
+    with SBT and DQ included; returns the number of cases."""
     from vvctpu_torch.coding import decide as tdec
     from vvctpu_torch.kernels import mc
     rng = np.random.default_rng(6)
@@ -687,7 +846,8 @@ def _inter_tool_worst_cases(dev):
         rows[:, 10] = (rows[:, 6] < 2) & (s >= 16)
         rows[:, 11:13] = rng.choice([-8, 4, 8, -36], (nb, 2))
         for flags in (dict(dmvr=True, bdof=True, gpm=True, affine=True),
-                      dict(dmvr=True), dict(bdof=True)):
+                      dict(dmvr=True), dict(bdof=True),
+                      dict(gpm=True, affine=True, sbt=True, dq=True)):
             n += _card_eq(f"phase A s={s} {sorted(flags)}", dev,
                           lambda *r, rows=rows, flags=flags: _phase_a_out(
                               r, rows, s, flags), *refs)
@@ -710,71 +870,90 @@ def _tool_counts(decs):
         ISP=sum(int(d.isp8.astype(bool).sum()) for d in inter),
         MTS=sum(int(d.mts8.astype(bool).sum()) for d in inter),
         LFNST=sum(int(d.lfnst8.astype(bool).sum()) for d in inter),
-        CCLM=sum(int(d.cmode8.astype(bool).sum()) for d in inter))
+        CCLM=sum(int(d.cmode8.astype(bool).sum()) for d in inter),
+        SBT=sum(int((d.sbt8 > 0).sum()) for d in inter))
     return cnt
 
 
-def _phase_tools_small(dev):
-    """Phase 6a: the 64x192 clip with every tool of the slice against the
-    spec model, and the inter tools' worst-case batches."""
+def _alf_ctus(data):
+    """(luma, chroma) CTU counts with ALF on, summed over a stream's
+    pictures (host parse of the port's decoder)."""
     from vvctpu_torch.pipeline import encoder as tenc
-    from vvctpu_torch.spec import sequence as tseq
-    frames = tool_frames()
-    cfg = tseq.EncoderConfig(qp=30, intra_period=0, gop=4, isp=True,
-                             mrl=True, **RA_TOOLS)
-    decs = []
-    data, recons, _ = tenc.encode_sequence(frames, cfg, device=dev,
-                                           decisions_out=decs)
-    sdata, _, _ = tseq.encode_sequence(frames, cfg)
-    if data != sdata:
-        raise AssertionError("64x192 GOP4 with the inter and intra tools: "
-                             "card bitstream != spec model's")
-    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
-    sout, _ = tseq.decode_sequence(data, check_hash=True)
-    if not _same_planes(recons, out, sout):
-        raise AssertionError("64x192 GOP4 tools: recon/decoder mismatch")
+    _, _, entries = tenc._parse(data, False)
+    luma = sum(int(e["alf"].ctu_on.sum()) for e in entries
+               if e["alf"] is not None and e["alf"].enabled)
+    chroma = sum(int(e["alf"].ctu_on_c[c].sum()) for e in entries
+                 if e["alf"] is not None for c in (0, 1)
+                 if e["alf"].c_enabled[c])
+    return luma, chroma
+
+
+def _phase_tools_small(dev):
+    """Phase 6a: the 64x256 clip with every tool of the slice against the
+    spec model, and the inter tools' worst-case batches."""
+    from vvctpu_torch.kernels import dq as kdq
+    before = kdq.launches
+    data, decs, _ = _held_to_spec("64x256 GOP4 with every tool of the slice",
+                                  dev, "ra_tools")
+    dq_launches = kdq.launches - before
     cnt = _tool_counts(decs)
-    missing = [t for t in ("GPM", "CIIP", "affine", "BCW", "BI")
+    alf_y, alf_c = _alf_ctus(data)
+    missing = [t for t in ("GPM", "CIIP", "affine", "BCW", "BI", "SBT")
                if not cnt[t]]
+    if not dq_launches:
+        missing.append("DQ")
+    if not alf_y + alf_c:
+        missing.append("ALF")
     if missing:
-        raise AssertionError(f"64x192 GOP4 tools: never chose {missing}")
-    print(f"[6a] 64x192 GOP4 QP30, 5 frames, every tool of the slice: "
+        raise AssertionError(f"64x256 GOP4 tools: never chose {missing}")
+    print(f"[6a] 64x256 GOP4 QP27, 5 frames, every tool of the slice: "
           f"{len(data)} bytes equal to the spec model; card and spec "
           "decoders verified hashes; 8x8 granules of P/B frames per tool: "
-          + ", ".join(f"{k} {v}" for k, v in cnt.items()))
+          + ", ".join(f"{k} {v}" for k, v in cnt.items())
+          + f"; dq_trellis launches in the encode {dq_launches}; CTUs with "
+          f"ALF on: luma {alf_y}, chroma {alf_c}")
     print(f"[6a] inter tools: card == CPU on {_inter_tool_worst_cases(dev)} "
           "worst-case batches (dmvr_offset, bdof_blend, affine luma with "
           "and without PROF and chroma, gpm_pass, affine_pass, phase A "
-          "with BCW/GPM/DMVR/BDOF/affine)")
+          "with BCW/GPM/DMVR/BDOF/affine and with SBT/DQ)")
 
 
 def phase_ra_tools(dev):
-    """Phase 6: random access with the inter toolset and the intra tools
-    in P and B frames; returns me_sad's launches on the 1080p path."""
+    """Phase 6: random access with the inter toolset, SBT, DQ, ALF and
+    the intra tools in P and B frames; returns the kernels' launches on
+    the 1080p path (me_sad, dq_trellis)."""
     from vvctpu_torch.spec import sequence as tseq
     _phase_tools_small(dev)
     n = 5
     decs = []
     cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=4, wpp=True,
-                             **RA_TOOLS)
-    r = _run_full(dev, synth_frames(n, 1080, 1920, seed=4), cfg,
-                  decisions_out=decs)
+                             sbt=True, dq=True, alf=True, **RA_TOOLS)
+    frames = synth_frames(n, 1080, 1920, seed=4)
+    r = _run_full(dev, frames, cfg, decisions_out=decs)
     # me_sad runs once for P4 and once per list for each of B2, B1, B3
     if r["launches"] != 7:
         raise AssertionError(f"me_sad launched {r['launches']} times on "
                              "the config #4 path, expected 7")
+    cnt = _tool_counts(decs)
+    if not r["dq_launches"]:
+        raise AssertionError("config #4: dq_trellis was never launched")
     tag = "[6b]"
-    print(f"{tag} bench config #4 without SBT, DQ and ALF: 1080p RA GOP4 "
-          f"QP32 WPP, {n} frames (I0 P4 B2 B1 B3), {sum(r['bits']) / n:.1f}"
-          " bits/frame (new data: the reference engine has no config #4 "
-          "number); 8x8 granules of P/B frames per tool: "
-          + ", ".join(f"{k} {v}" for k, v in _tool_counts(decs).items()))
+    print(f"{tag} bench config #4 whole: 1080p RA GOP4 QP32 WPP with SBT, "
+          f"DQ and ALF, {n} frames (I0 P4 B2 B1 B3), "
+          f"{sum(r['bits']) / n:.1f} bits/frame (new data: the reference "
+          "engine has no config #4 number); 8x8 granules of P/B frames per "
+          "tool: " + ", ".join(f"{k} {v}" for k, v in cnt.items()))
+    alf_y, alf_c = r["alf_ctus"]
+    print(f"{tag} CTUs with ALF on over the {n} frames: luma {alf_y}, "
+          f"chroma {alf_c}; alf stage: encode "
+          f"{r['enc_t'].get('alf', 0.0):.2f} s, decode "
+          f"{r['dec_t'].get('alf', 0.0):.2f} s")
     _report(tag, r, n)
     for k in ("enc", "dec"):
         lt = r[f"{k}_l"]
         print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
             f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
-    return r["launches"]
+    return r["launches"], r["dq_launches"]
 
 
 def main() -> int:
@@ -782,17 +961,45 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    krow = phase_kernels(dev)
-    phase_small(dev)
-    launches = (phase_full(dev) + phase_ra(dev) + phase_ai(dev)
-                + phase_ra_tools(dev))
+
+    def timed(tag, fn):
+        t0 = time.time()
+        out = fn(dev)
+        print(f"[time] {tag}: {time.time() - t0:.1f} s")
+        return out
+
+    # the spec model's side of phases 2, 5a and 6a is host work: two
+    # worker processes run it while the card runs the phases before them
+    pool = ProcessPoolExecutor(max_workers=2,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        for name in _spec_clips():
+            _SPEC[name] = pool.submit(_spec_run, name)
+        krow = timed("phase 1 me_sad", phase_kernels)
+        drow = timed("phase 1 dq_trellis", phase_dq_kernel)
+        timed("phase 2", phase_small)
+        launches = (timed("phase 3", phase_full) + timed("phase 4", phase_ra)
+                    + timed("phase 5", phase_ai))
+        me4, dq_launches = timed("phase 6", phase_ra_tools)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"[time] spec model side in the workers: {_SPEC_T['work']:.1f} s; "
+          f"the card's phases waited {_SPEC_T['wait']:.1f} s for it, so "
+          f"the workers saved {_SPEC_T['work'] - _SPEC_T['wait']:.1f} s")
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
-                    launches=launches, equal=krow["max_abs_err"] == 0,
+                    launches=launches + me4, equal=krow["max_abs_err"] == 0,
                     max_abs_err=krow["max_abs_err"], ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
-                    bound_by=krow["bound_by"], library_ms=None)]
+                    bound_by=krow["bound_by"], library_ms=None),
+               dict(name="dq_trellis", route="cuda",
+                    source="vvctpu_torch/csrc/dq_trellis.cu",
+                    replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
+                    launches=dq_launches, equal=drow["max_abs_err"] == 0,
+                    max_abs_err=drow["max_abs_err"], ms=drow["ms"],
+                    plain_ms=drow["plain_ms"], bound_ms=drow["bound_ms"],
+                    bound_by=drow["bound_by"], library_ms=None)]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -124,12 +124,12 @@ def test_decodes_spec_ippp_stream_with_isp():
 @pytest.mark.parametrize("tool", TOOLS)
 def test_tools_outside_all_intra_raise(tool):
     """Outside all-intra the intra tools are in the slice: beside a tool
-    that is not (SBT), only that tool is refused."""
+    that is not (JCCR), only that tool is refused."""
     frames = synth(1, 64, 64)
     with pytest.raises(ValueError, match="outside") as err:
         tenc.encode_sequence(frames, tseq.EncoderConfig(
-            intra_period=0, sbt=True, **{tool: True}), device="cpu")
-    assert str(err.value).endswith(": sbt")
+            intra_period=0, jccr=True, **{tool: True}), device="cpu")
+    assert str(err.value).endswith(": jccr")
 
 
 def test_cli_intra_tools(tmp_path, capsys):

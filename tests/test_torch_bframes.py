@@ -220,8 +220,8 @@ def test_ra_cross_decode(case):
     assert tids == want and max(want) > 1
 
 
-@pytest.mark.parametrize("tool", ["sbt_enabled", "dq_enabled",
-                                  "alf_enabled"])
+@pytest.mark.parametrize("tool", ["mtt_enabled", "lmcs_enabled",
+                                  "jccr_enabled"])
 def test_b_stream_with_tool_outside_slice_raises(tool):
     """A random-access stream whose SPS enables a tool outside the slice
     raises in the port's decoder (it is checked before any slice)."""

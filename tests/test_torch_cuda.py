@@ -1,8 +1,9 @@
-"""Tests that need the card: the hand-written kernel against its plain
-twin, the float64 transform products against the CPU path, the
-random-access path (ext motion search, B decisions, frame-batched wave)
-and all-intra with the intra toolset (the transform and chroma choices
-included) on the card against the CPU.  They skip without CUDA; on the
+"""Tests that need the card: the hand-written kernels (motion search,
+dependent-quantization trellis) against their plain twins, the float64
+transform products against the CPU path, the random-access path (ext
+motion search, B decisions, frame-batched wave), all-intra with the
+intra toolset (the transform and chroma choices included), and SBT, DQ
+and ALF on the card against the CPU.  They skip without CUDA; on the
 GPU machine (which has no JAX, so the JAX test configuration is
 bypassed):
 
@@ -181,3 +182,37 @@ def test_cclm_card_equals_cpu(cuda, s):
         f=torch.zeros(len(pts), dtype=torch.int32, device=d))
         for d in (cuda, torch.device("cpu"))]
     assert torch.equal(outs[0].cpu(), outs[1])
+
+
+@pytest.mark.parametrize("hw", [(4, 4), (8, 8), (32, 32), (8, 16), (32, 8)])
+def test_dq_trellis_kernel_equals_twin(cuda, hw):
+    """The trellis kernel against its plain twin on noisy, all-zero,
+    saturated and flat blocks at qp 22 and 37; one launch per call."""
+    from chip_smoke import _dq_cases
+    from vvctpu_torch.kernels import dq as kdq
+    from vvctpu_torch.spec.transform import lambda_rd_int
+    h, w = hw
+    a = torch.as_tensor(_dq_cases(np.random.default_rng(h + w), h, w),
+                        device=cuda)
+    for qp in (22, 37):
+        p = ttf.dq_params(h, w, qp, lambda_rd_int(qp))
+        before = kdq.launches
+        got = kdq.dq_trellis(a, *p)
+        assert kdq.launches == before + 1
+        assert torch.equal(got, kdq.quantize_dq_reference(a, *p))
+
+
+def test_sbt_dq_alf_card_equals_cpu(cuda):
+    """Random access GOP4 with SBT, DQ and ALF: same bytes and recon on
+    the card as on the CPU; the card decodes its own stream."""
+    from chip_smoke import tool_frames
+    frames = tool_frames()
+    cfg = tseq.EncoderConfig(qp=27, intra_period=0, gop=4, sbt=True,
+                             dq=True, alf=True, mts=True, ciip=True)
+    data, rec, bits = tenc.encode_sequence(frames, cfg, device=cuda)
+    cdata, crec, cbits = tenc.encode_sequence(frames, cfg, device="cpu")
+    assert data == cdata and bits == cbits
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=cuda)
+    for a, b, c in zip(rec, crec, out):
+        for i in range(3):
+            assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])

@@ -67,11 +67,11 @@ def test_corrupt_stream_fails_hash():
         tenc.decode_sequence(bytes(bad), check_hash=True, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(sbt=True), dict(tile_cols=2),
+@pytest.mark.parametrize("kw", [dict(jccr=True), dict(tile_cols=2),
                                 dict(subpic_cols=2), dict(lmcs=True),
-                                dict(alf=True), dict(mctf=True),
+                                dict(tskip=True), dict(mctf=True),
                                 dict(rc_bits_per_frame=1000),
-                                dict(dq=True, intra_period=0),
+                                dict(ibc=True, intra_period=0),
                                 dict(ctu=128)])
 def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)

@@ -15,6 +15,7 @@ pytest.importorskip("jax")
 from vvctpu.pipeline import encoder as jenc  # noqa: E402
 from vvctpu.spec import sequence as sseq  # noqa: E402
 from vvctpu_torch import state  # noqa: E402
+from vvctpu_torch.pipeline import plan as tplan  # noqa: E402
 from vvctpu_torch.pipeline import encoder as tenc  # noqa: E402
 from vvctpu_torch.spec import sequence as tseq  # noqa: E402
 
@@ -36,14 +37,17 @@ def _same(a, b):
                for c in range(3))
 
 
-_REFINED = dict(qp=30, gpm=True, ciip=True, dmvr=True, bdof=True, bcw=True,
-                mmvd=True, affine=True, **_RA)
+# test_gpm.py:86's refined-toolset config, whose programs that test
+# compiles for the reference engine too (shared through the suite's
+# compile cache)
+_REFINED = dict(qp=30, gpm=True, ciip=True, sbt=True, dmvr=True, bdof=True,
+                bcw=True, mmvd=True, **_RA)
 
 
 @functools.lru_cache(maxsize=None)
 def _refined_port():
-    """The port's encode of test_gpm.py's refined-toolset config without
-    SBT and with affine (frames, bytes, recon, bits, decisions)."""
+    """The port's encode of test_gpm.py's refined-toolset config (frames,
+    bytes, recon, bits, decisions)."""
     frames = synth_motion(5, 64, 64, seed=4)
     decs = []
     data, rec, bits = tenc.encode_sequence(
@@ -55,7 +59,10 @@ def _refined_port():
 def test_refined_toolset_equals_reference_engine():
     """The port's bytes and FrameDecisions equal the reference engine's on
     the refined-toolset config, and the port decodes the reference's
-    stream with the hashes verified."""
+    stream with the hashes verified.  The SBT index is compared on each
+    leaf's top-left granule, the only one the reference engine writes
+    (the port writes every granule of the leaf, as the spec model
+    does)."""
     frames, data, rec, bits, got_dec = _refined_port()
     want_dec = []
     jdata, jrec, jbits = jenc.encode_sequence(
@@ -65,9 +72,15 @@ def test_refined_toolset_equals_reference_engine():
     for g, w in zip(got_dec, want_dec):
         w = state.decisions_from_numpy(w)
         for f in dataclasses.fields(w):
-            if isinstance(getattr(w, f.name), np.ndarray):
+            if isinstance(getattr(w, f.name), np.ndarray) \
+                    and f.name != "sbt8":
                 np.testing.assert_array_equal(getattr(g, f.name),
                                               getattr(w, f.name), f.name)
+        op, xs, ys = tplan.leaf_plan(g, 64, 64)[:3]
+        origin = np.zeros_like(w.sbt8, bool)
+        origin[ys[op > 0] // 8, xs[op > 0] // 8] = True
+        np.testing.assert_array_equal(g.sbt8[origin], w.sbt8[origin])
+        assert not w.sbt8[~origin].any()
     # BI with DMVR/BDOF, BCW weights and GPM are all on the path
     assert any((d.gpm8 > 0).any() for d in got_dec)
     assert any(((d.dir8 == 2) & (d.inter8 > 0)).any() for d in got_dec)
@@ -97,10 +110,10 @@ _SPEC_CASES = {
                          for t in range(5)],
                 dict(qp=32, mip=True, mrl=True, mts=True, lfnst=True,
                      cclm=True, **_RA)),
-    # test_affine.py:87 without SBT
+    # test_affine.py:87
     "affine_b": (lambda: synth_zoom(5, 64, 64, seed=5),
-                 dict(qp=30, affine=True, mmvd=True, dmvr=True, bdof=True,
-                      **_RA)),
+                 dict(qp=30, affine=True, mmvd=True, sbt=True, dmvr=True,
+                      bdof=True, **_RA)),
     # test_mmvd.py:113
     "mmvd": (lambda: mmvd_planes(3, 64, 128, seed=17, step=2),
              dict(qp=34, mmvd=True, intra_period=0, gop=2, deblock=False,
@@ -127,8 +140,8 @@ def test_tool_config_equals_spec_model(case):
     assert _same(out, rec)
 
 
-@pytest.mark.parametrize("kw", [dict(sbt=True), dict(dq=True),
-                                dict(alf=True), dict(mtt=True),
+@pytest.mark.parametrize("kw", [dict(mctf=True), dict(subpic_rows=2),
+                                dict(tile_rows=2), dict(mtt=True),
                                 dict(mtt=True, tt=True), dict(lmcs=True),
                                 dict(ibc=True), dict(plt=True),
                                 dict(tskip=True), dict(jccr=True),
@@ -140,23 +153,26 @@ def test_tools_outside_slice_still_raise(kw):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sbt_enabled", True), ("dq_enabled", True), ("alf_enabled", True),
+    ("log2_ctu", 5), ("bit_depth", 12), ("tile_rows", None),
     ("mtt_enabled", True), ("tt_enabled", True), ("lmcs_enabled", True),
     ("ibc_enabled", True), ("plt_enabled", True), ("ts_enabled", True),
     ("jccr_enabled", True), ("log2_ctu", 7), ("bit_depth", 10),
     ("tiles", None)])
 def test_stream_outside_slice_still_raises(field, value):
     """The decoder's SPS/PPS check refuses what the slice leaves out and
-    accepts the inter and intra toolsets."""
+    accepts the inter and intra toolsets, SBT, DQ and ALF."""
     from vvctpu_torch.spec import hls
     tools = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
                  cclm=True, mmvd=True, dmvr=True, bdof=True, bcw=True,
-                 gpm=True, affine=True, amvr=True, smvd=True, ciip=True)
+                 gpm=True, affine=True, amvr=True, smvd=True, ciip=True,
+                 sbt=True, dq=True, alf=True)
     sps = tseq.EncoderConfig(intra_period=0, gop=4, **tools).make_sps(64, 64)
     tenc._check_sps(sps, hls.PPS())
     pps = hls.PPS()
     if field == "tiles":
         pps = dataclasses.replace(pps, num_tile_cols=2)
+    elif field == "tile_rows":
+        pps = dataclasses.replace(pps, num_tile_rows=2)
     else:
         sps = dataclasses.replace(sps, **{field: value})
     with pytest.raises(ValueError, match="outside"):

@@ -1,6 +1,6 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
 the PyTorch engine (all-intra, low-delay P or random access, with VVC's
-intra and inter toolsets).
+intra and inter toolsets, dependent quantization and ALF).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
@@ -8,7 +8,8 @@ intra and inter toolsets).
         --mts --lfnst --isp --mip --mrl --cclm -f 3 -b ai.bin
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 4 --wpp --mts --lfnst --cclm --mip --mmvd --bcw \\
-        --amvr --smvd --ciip --gpm --affine --dmvr --bdof -f 5 -b ra.bin
+        --amvr --smvd --ciip --gpm --affine --dmvr --bdof --sbt --dq --alf \\
+        -f 5 -b ra.bin
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
@@ -37,6 +38,9 @@ _TOOLS = {
     "amvr": "adaptive MVD resolution (1/4, 1, 4 pel)",
     "smvd": "symmetric MVD for BI leaves (symmetric refs)",
     "ciip": "combined inter-intra prediction (planar blend)",
+    "sbt": "sub-block transform for inter luma residual",
+    "dq": "dependent quantization (4-state trellis)",
+    "alf": "adaptive loop filter (luma Wiener, CTU flags)",
 }
 
 

@@ -4,7 +4,9 @@ Deblocking: the vertical-edge windows on the 8x8 luma grid are disjoint
 8-column tiles, so a whole plane filters as one reshaped elementwise
 pass; horizontal edges run on the transposed plane.  SAO: per-CTU
 statistics by scatter-add, the integer RD choice, then the elementwise
-offset stencil.  Bit-identical to spec/deblock.py and spec/sao.py.
+offset stencil.  ALF and CC-ALF: the 4x4 classification and the
+diamond filters as shifted-plane sums.  Bit-identical to spec/deblock.py,
+spec/sao.py and spec/alf.py.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import const
+from ..spec.alf import _ACT_TABLE, CC_OFFSETS, DIAMOND, DIAMOND_C, TRANS_PERMS
 from ..spec.deblock import BETA_TABLE, TC_TABLE, edge_masks
 from ..spec.sao import (MAX_OFFSET, N_BANDS, SAO_BAND, SAO_EO0, SAO_EO45,
                         SAO_EO90, SAO_EO135, SAO_OFF, _EO_NEIGH, _EO_SIGN)
@@ -324,3 +327,134 @@ def finish_frame_j(planes, decisions, qp: int, lam: int, orig_planes,
             torch.stack(types, -1).reshape(n_y, n_x, 3),
             torch.stack(offs, -2).reshape(n_y, n_x, 3, 4),
             torch.stack(bps, -1).reshape(n_y, n_x, 3))
+
+
+# ---------------------------------------------------------------------------
+# ALF + CC-ALF (twins of the reference's classify_j, _alf_luma_jit,
+# _alf_chroma_jit, apply_alf_frame_j): the 4x4 classification, the luma
+# 7x7 diamond, the chroma 5x5 diamond and the cross-component taps, on
+# device planes.  The parameters are derived on the host
+# (spec/alf.derive_alf_frame).
+# ---------------------------------------------------------------------------
+
+
+def _pad_edge(p, m: int):
+    """np.pad(p, m, mode="edge") of a 2-D tensor."""
+    h, w = p.shape
+    dev = p.device
+    iy = (torch.arange(h + 2 * m, device=dev) - m).clamp(0, h - 1)
+    ix = (torch.arange(w + 2 * m, device=dev) - m).clamp(0, w - 1)
+    return p[iy[:, None], ix[None, :]]
+
+
+def classify_j(plane, bd: int):
+    """(cls, tr) int32 per 4x4 block of a 2-D plane (twin of classify_j:
+    the direction from the 2x-dominance rule, the activity by the 16->5
+    table, the transpose index (sumV > sumH) + 2 (sumD1 > sumD0))."""
+    p = plane.to(torch.int32)
+    z = _pad_edge(p, 1)
+    h, w = p.shape
+    gv = (2 * p - z[:-2, 1:-1] - z[2:, 1:-1]).abs()
+    gh = (2 * p - z[1:-1, :-2] - z[1:-1, 2:]).abs()
+    gd0 = (2 * p - z[:-2, :-2] - z[2:, 2:]).abs()
+    gd1 = (2 * p - z[:-2, 2:] - z[2:, :-2]).abs()
+
+    def bsum(g):
+        return g.reshape(h // 4, 4, w // 4, 4).sum((1, 3), dtype=torch.int32)
+
+    sv, sh_, sd0, sd1 = bsum(gv), bsum(gh), bsum(gd0), bsum(gd1)
+    hv1 = torch.maximum(sv, sh_)
+    hv0 = torch.minimum(sv, sh_)
+    d1 = torch.maximum(sd0, sd1)
+    d0 = torch.minimum(sd0, sd1)
+    strong_hv = hv1 > 2 * hv0
+    strong_d = d1 > 2 * d0
+    # the products need 34 bits
+    diag_main = d1.long() * hv0 > hv1.long() * d0
+    dir_idx = torch.where(~strong_hv & ~strong_d, 0,
+                          torch.where(diag_main,
+                                      torch.where(strong_d, 4, 3),
+                                      torch.where(strong_hv, 2, 1)))
+    a16 = (((sv + sh_) * 16) >> (3 + bd)).clamp(0, 15)
+    cls = (dir_idx * 5 + const(_ACT_TABLE, plane.device)[a16.long()]) \
+        .to(torch.int32)
+    tr = (sv > sh_).to(torch.int32) + 2 * (sd1 > sd0).to(torch.int32)
+    return cls, tr
+
+
+def _stencil(z, pad: int, offsets, p):
+    """Difference features p(+o) + p(-o) - 2 p of a plane ``p`` padded by
+    ``pad`` into ``z``, one per offset."""
+    h, w = p.shape
+    return [z[pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+            + z[pad - dy:pad - dy + h, pad - dx:pad - dx + w] - 2 * p
+            for dy, dx in offsets]
+
+
+def _ctu_mask(on, ctu: int, h: int, w: int):
+    return on.repeat_interleave(ctu, 0).repeat_interleave(ctu, 1)[:h, :w]
+
+
+def _alf_luma(p, coeff_eff, present, ctu_on, ctu: int, bd: int):
+    h, w = p.shape
+    cls, tr = classify_j(p, bd)
+    per_block = coeff_eff[cls.long(), tr.long()] \
+        * present[cls.long()][..., None]                 # (h/4, w/4, 12)
+    per_pix = per_block.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    delta = torch.zeros_like(p)
+    for i, f in enumerate(_stencil(_pad_edge(p, 3), 3, DIAMOND, p)):
+        delta += per_pix[..., i] * f
+    filt = (p + ((delta + 64) >> 7)).clamp(0, (1 << bd) - 1)
+    return torch.where(_ctu_mask(ctu_on, ctu, h, w), filt, p)
+
+
+def _alf_chroma(p, luma_in, c_coeff, cc_coeff, ctu_on_c, cctu: int,
+                bd: int):
+    """One chroma plane: the 5x5 diamond with the host coefficient list
+    ``c_coeff`` (None: off) and the CC-ALF taps ``cc_coeff`` on the
+    pre-ALF luma (None: off)."""
+    ch, cw = p.shape
+    delta = torch.zeros_like(p)
+    if c_coeff is not None:
+        acc = torch.zeros_like(p)
+        for c, f in zip(c_coeff, _stencil(_pad_edge(p, 2), 2, DIAMOND_C, p)):
+            acc += int(c) * f
+        delta += (acc + 64) >> 7
+    if cc_coeff is not None:
+        lz = _pad_edge(luma_in, 2)
+        ctr = lz[2:2 + 2 * ch:2, 2:2 + 2 * cw:2]
+        acc = torch.zeros_like(p)
+        for c, (dy, dx) in zip(cc_coeff, CC_OFFSETS):
+            acc += int(c) * (lz[2 + dy:2 + dy + 2 * ch:2,
+                                2 + dx:2 + dx + 2 * cw:2] - ctr)
+        delta += (acc + 64) >> 7
+    filt = (p + delta).clamp(0, (1 << bd) - 1)
+    return torch.where(_ctu_mask(ctu_on_c, cctu, ch, cw), filt, p)
+
+
+def apply_alf_frame(planes, params, ctu: int = 64, bd: int = 8):
+    """ALF of three device planes with host AlfParams (twin of
+    apply_alf_frame_j, without the fetch): luma, then each chroma plane
+    with CC-ALF from the pre-ALF luma.  Returns device planes."""
+    luma_in = planes[0].to(torch.int32)
+    dev = luma_in.device
+
+    def up(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    out = [luma_in]
+    if params.enabled:
+        out[0] = _alf_luma(luma_in, up(params.coeff[:, TRANS_PERMS]),
+                           up(params.present), up(params.ctu_on, torch.bool),
+                           ctu, bd)
+    for c in (0, 1):
+        base = planes[c + 1].to(torch.int32)
+        if not params.c_enabled[c]:
+            out.append(base)
+            continue
+        out.append(_alf_chroma(
+            base, luma_in,
+            params.c_coeff[c] if params.c_coeff[c].any() else None,
+            params.cc_coeff[c] if params.cc_present[c] else None,
+            up(params.ctu_on_c[c], torch.bool), ctu // 2, bd))
+    return out

@@ -21,16 +21,12 @@ ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..spec.inter import ME_RANGE
+from . import cuda_build
 
 I32MAX = int(np.iinfo(np.int32).max)
 
@@ -59,9 +55,6 @@ SPLIT = 2
 # kernel launches since the count was last set to 0
 launches = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "me_sad.cu"
-_BUILD = _PKG / "_build"
 _LIB = None
 
 
@@ -72,25 +65,7 @@ def build(verbose: bool = False) -> str:
     global _LIB
     if _LIB is not None:
         return ""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + bytes([verbose])).hexdigest()[:12]
-    out = _BUILD / f"libme_sad-{tag}.so"
-    log = ""
-    if not out.exists():
-        _BUILD.mkdir(exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SRC)]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-        log = res.stdout + res.stderr
-    lib = ctypes.CDLL(str(out))
+    lib, log = cuda_build.load("me_sad", verbose)
     lib.me_sad_launch.restype = ctypes.c_int
     lib.me_sad_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -9,8 +9,10 @@ table's identity, so a runtime table swap (core/tables_spec
 install/uninstall) takes effect at once.
 
 Functions operate on (..., h, w) int32 batches with static (h, w) and a
-host-side integer qp; the MTS/LFNST RD choice (``choose_tx``) and the
-per-row inverse kernels take a leading block axis.
+host-side integer qp; the MTS/LFNST RD choice (``choose_tx``), the SBT
+choice (``choose_sbt``) and the per-row inverse kernels take a leading
+block axis.  Dependent quantization's trellis is the hand kernel of
+``kernels/dq.py``; its state walk and dequantizer are here.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import torch
 
 from ..cabac import estimate as est
 from ..core import rom
-from ..spec.transform import MTS_SET, tx_candidates
+from ..device import const
+from ..spec.transform import (DQ_MAPS, MTS_SET, sbt_kernels, sbt_region,
+                              tx_candidates)
 
 COEFF_MIN, COEFF_MAX = -32768, 32767
 
@@ -83,7 +87,9 @@ def _bitlen15(a):
 
 
 def quantize(coef, h: int, w: int, qp: int, intra: bool = True, bd: int = 8,
-             rdoq: bool = False, lam_rd: int = 0):
+             rdoq: bool = False, lam_rd: int = 0, dq: bool = False):
+    if dq:
+        return quantize_dq(coef, h, w, qp, lam_rd, bd)
     if rdoq:
         return quantize_rdoq_j(coef, h, w, qp, lam_rd, bd)
     ts = rom.transform_shift(_log2(w), _log2(h), bd)
@@ -132,7 +138,10 @@ def _net_shift(t, net: int):
     return (t + rnd) >> -net
 
 
-def dequantize(level, h: int, w: int, qp: int, bd: int = 8):
+def dequantize(level, h: int, w: int, qp: int, bd: int = 8,
+               dq: bool = False):
+    if dq:
+        return dequantize_dq(level, h, w, qp, bd)
     shift = bd + ((_log2(w) + _log2(h)) >> 1) - 9
     iq = int(_IQ_SCALES[qp % 6])
     t = level.to(torch.int32) * iq
@@ -140,11 +149,112 @@ def dequantize(level, h: int, w: int, qp: int, bd: int = 8):
 
 
 def reconstruct(pred, level, h: int, w: int, qp: int,
-                kind_h: int = rom.DCT2, kind_v: int = rom.DCT2, bd: int = 8):
+                kind_h: int = rom.DCT2, kind_v: int = rom.DCT2, bd: int = 8,
+                dq: bool = False):
     """Shared enc/dec reconstruction (zero levels reduce to pred exactly)."""
-    resi = inverse_transform(dequantize(level, h, w, qp, bd), h, w,
+    resi = inverse_transform(dequantize(level, h, w, qp, bd, dq=dq), h, w,
                              kind_h, kind_v, bd)
     return (pred.to(torch.int32) + resi).clamp(0, (1 << bd) - 1)
+
+
+# ---------------------------------------------------------------------------
+# Dependent quantization (twins of the reference's dq_states_j /
+# dequantize_dq_j / quantize_dq_j): the decoder's state walk is a
+# log-depth composition of the 4-state transition maps, the encoder's
+# trellis the hand kernel of kernels/dq.py.  Both take any leading batch
+# axes over (h, w) blocks.
+# ---------------------------------------------------------------------------
+
+_SCAN_XY: dict = {}
+
+
+def _scan_xy(log2w: int, log2h: int):
+    """Walk-ordered (reverse diagonal scan) x/y index arrays (numpy)."""
+    key = (log2w, log2h)
+    if key not in _SCAN_XY:
+        scan = rom.scan_order(log2w, log2h)
+        xs = np.asarray([p[0] for p in scan], np.int32)[::-1].copy()
+        ys = np.asarray([p[1] for p in scan], np.int32)[::-1].copy()
+        _SCAN_XY[key] = (xs, ys)
+    return _SCAN_XY[key]
+
+
+_WALK: dict = {}
+
+
+def _walk(h: int, w: int):
+    """(walk-order raster index, its inverse) as int64 numpy arrays: the
+    raster position of walk step j, and the walk step of each raster
+    position."""
+    key = (h, w)
+    if key not in _WALK:
+        xs, ys = _scan_xy(_log2(w), _log2(h))
+        fwd = (ys.astype(np.int64) * w + xs)
+        inv = np.empty_like(fwd)
+        inv[fwd] = np.arange(fwd.size)
+        _WALK[key] = (fwd, inv)
+    return _WALK[key]
+
+
+_DQ_MAPS = np.asarray(DQ_MAPS, np.int64)
+
+
+def dq_states(level, h: int, w: int):
+    """(..., h, w) int32 quantizer-state planes (twin of dq_states_j): the
+    state before each position of the walk, from state 0.  The prefix
+    compositions of the per-position maps come from log2(h * w) doubling
+    steps."""
+    fwd, inv = _walk(h, w)
+    dev = level.device
+    lead = level.shape[:-2]
+    lv = level.reshape(-1, h * w)
+    par = (lv.abs()[:, const(fwd, dev)] & 1).long()       # (B, n) walk
+    cum = const(_DQ_MAPS, dev)[par]                       # (B, n, 4)
+    n = h * w
+    d = 1
+    while d < n:
+        # cum[j] <- cum[j] after cum[j - d]
+        cum = torch.cat([cum[:, :d], torch.gather(cum[:, d:], 2,
+                                                  cum[:, :-d])], 1)
+        d *= 2
+    st = torch.cat([torch.zeros_like(cum[:, :1, 0]), cum[:, :-1, 0]], 1)
+    return st[:, const(inv, dev)].to(torch.int32).reshape(*lead, h, w)
+
+
+def dequantize_dq(level, h: int, w: int, qp: int, bd: int = 8):
+    """State-dependent dequantization (twin of dequantize_dq_j)."""
+    shift = bd + ((_log2(w) + _log2(h)) >> 1) - 9
+    iq = int(_IQ_SCALES[qp % 6])
+    st = dq_states(level, h, w)
+    lv = level.to(torch.int32)
+    off = ((st > 1) & (lv != 0)).to(torch.int32) * torch.sign(lv)
+    t = (2 * lv - off) * iq
+    return _net_shift(t, qp // 6 - (shift + 1)).clamp(COEFF_MIN, COEFF_MAX)
+
+
+def dq_params(h: int, w: int, qp: int, lam_rd: int, bd: int = 8):
+    """dq_trellis's scalars for (h, w) blocks: (forward scale, forward
+    shift, inverse scale, the dequantizer's net shift, lambda scaled by
+    the transform shift and clamped to 2^22)."""
+    ts = rom.transform_shift(_log2(w), _log2(h), bd)
+    shift = bd + ((_log2(w) + _log2(h)) >> 1) - 9
+    return (int(_Q_SCALES[qp % 6]), rom.QUANT_SHIFT + qp // 6 + ts,
+            int(_IQ_SCALES[qp % 6]), qp // 6 - (shift + 1),
+            min(int(lam_rd) << max(2 * ts, 0), 1 << 22))
+
+
+def quantize_dq(coef, h: int, w: int, qp: int, lam_rd: int, bd: int = 8):
+    """Trellis dependent quantization of (..., h, w) coefficients (twin of
+    quantize_dq_j): the absolute values gathered into walk order, one
+    dq_trellis over every block, the signs and the scatter back."""
+    from .dq import dq_trellis      # dq builds on this module's helpers
+    fwd, inv = _walk(h, w)
+    dev = coef.device
+    c = coef.reshape(-1, h * w).to(torch.int32)
+    a = c.abs().t()[const(fwd, dev)]                      # (n, B) walk
+    lev = dq_trellis(a, *dq_params(h, w, qp, lam_rd, bd))
+    out = torch.sign(c) * lev[const(inv, dev)].t()
+    return out.reshape(coef.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +448,7 @@ def _cand_const(cands: tuple, mts: bool, lfnst: bool, qp: int, device):
 
 def choose_tx(resi, s: int, qp: int, lam_rd: int, mode, bd: int = 8,
               mts: bool = True, lfnst: bool = False, rdoq: bool = False,
-              allow=None):
+              allow=None, dq: bool = False):
     """Joint MTS/LFNST RD choice for (B, s, s) luma residuals with (B,)
     modes: every candidate of ``tx_candidates(mts, lfnst)`` is transformed,
     quantised, reconstructed and costed in one stacked pass, and the first
@@ -369,8 +479,8 @@ def choose_tx(resi, s: int, qp: int, lam_rd: int, mode, bd: int = 8,
             B, 2, 4, 4), kmat, tr2), coef[:, ls])
 
     lev = quantize(coef, s, s, qp, intra=True, bd=bd, rdoq=rdoq,
-                   lam_rd=lam_rd)
-    dqc = dequantize(lev, s, s, qp, bd)
+                   lam_rd=lam_rd, dq=dq)
+    dqc = dequantize(lev, s, s, qp, bd, dq=dq)
     if lfnst:
         dqc[:, ls] = _corner(_lfnst_inv4(dqc[:, ls, :4, :4], kmat, tr2),
                              dqc[:, ls])
@@ -400,3 +510,75 @@ def choose_mts(resi, s: int, qp: int, lam_rd: int, bd: int = 8):
         torch.zeros(resi.shape[0], dtype=torch.int32, device=resi.device),
         bd, mts=True, lfnst=False)
     return midx, lev, rec
+
+
+# ---------------------------------------------------------------------------
+# SBT (twins of the reference's choose_sbt_j / sbt_resi_j), batched over
+# leaves
+# ---------------------------------------------------------------------------
+
+
+def _sbt_rec(lev_s, idx: int, s: int, qp: int, bd: int, dq: bool):
+    """Dequantised and inverse-transformed (B, h, w) levels of SBT
+    region ``idx``, zero-padded into (B, s, s)."""
+    x0, y0, w, h = sbt_region(idx, s)
+    kh, kv = sbt_kernels(idx)
+    r = inverse_transform(dequantize(lev_s, h, w, qp, bd, dq=dq), h, w,
+                          kh, kv, bd)
+    return _pad_region(r, x0, y0, s)
+
+
+def _pad_region(sub, x0: int, y0: int, s: int):
+    out = sub.new_zeros((sub.shape[0], s, s))
+    out[:, y0:y0 + sub.shape[1], x0:x0 + sub.shape[2]] = sub
+    return out
+
+
+def choose_sbt(resi, s: int, qp: int, lam_rd: int, bd: int = 8,
+               rdoq: bool = False, dq: bool = False):
+    """SBT RD choice for (B, s, s) inter luma residuals: the full DCT-II
+    and the four half transforms, each quantised and reconstructed, the
+    first minimum of the RD cost in index order, an all-zero winner
+    collapsed to 0.  Returns (sbt_idx (B,), levels (B, s, s),
+    reconstructed residual (B, s, s)), int32."""
+    dev = resi.device
+    x = resi.to(torch.int32)
+    sbt_fp = tx_bits(qp).sbt_fp
+    lw = lvl_weights(qp, dev)
+    costs, levs, recs = [], [], []
+    for idx in range(5):
+        x0, y0, w, h = sbt_region(idx, s)
+        kh, kv = sbt_kernels(idx)
+        coef = forward_transform(x[:, y0:y0 + h, x0:x0 + w], h, w, kh, kv,
+                                 bd)
+        lev_s = quantize(coef, h, w, qp, intra=True, bd=bd, rdoq=rdoq,
+                         lam_rd=lam_rd, dq=dq)
+        rec = _sbt_rec(lev_s, idx, s, qp, bd, dq)
+        dist = ((x - rec) ** 2).sum((-2, -1), dtype=torch.int32)
+        rate_fp = level_rate_fp(lev_s, lw, dims=(-2, -1)) + int(sbt_fp[idx])
+        costs.append(_rd_cost(dist, rate_fp, lam_rd))
+        levs.append(_pad_region(lev_s, x0, y0, s))
+        recs.append(rec)
+    i = torch.argmin(torch.stack(costs, 1), dim=1)
+    rows = torch.arange(x.shape[0], device=dev)
+    lev = torch.stack(levs, 1)[rows, i]
+    rec = torch.stack(recs, 1)[rows, i]
+    i = torch.where(lev.flatten(1).any(1), i, torch.zeros_like(i))
+    return i.to(torch.int32), lev, rec
+
+
+def sbt_resi(lev_full, sbt_idx, s: int, qp: int, bd: int = 8,
+             dq: bool = False):
+    """Residual of (B, s, s) SBT level blocks: each leaf's region (index
+    0 the full DCT-II) dequantised and inverse-transformed, zero
+    elsewhere.  sbt_idx: the (B,) indices as a host array (the decoder's
+    parsed slot column), by which the leaves are grouped."""
+    idx_np = np.clip(np.asarray(sbt_idx), 0, 4)
+    out = lev_full.new_zeros(lev_full.shape)
+    for idx in np.unique(idx_np):
+        ri = torch.as_tensor(np.nonzero(idx_np == idx)[0],
+                             device=lev_full.device)
+        x0, y0, w, h = sbt_region(int(idx), s)
+        out[ri] = _sbt_rec(lev_full[ri, y0:y0 + h, x0:x0 + w], int(idx), s,
+                           qp, bd, dq)
+    return out

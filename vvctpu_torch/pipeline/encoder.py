@@ -4,11 +4,12 @@ Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
 P and random access (hierarchical B, any ``gop`` and ``intra_period``),
 one tile, CTU 64, the default toolset plus VVC's intra toolset (MTS,
 LFNST, ISP, MIP, MRL, CCLM) in every slice type and its inter toolset
-(BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR, SMVD; DMVR
-and BDOF in BI-symmetric pictures only).  All-intra frames are
-reconstructed in groups of up to eight per frame-batched wave; one
-temporal layer's B frames are decided frame by frame and reconstructed
-in one frame-batched wave.  The bitstreams are byte-identical to the
+(BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR, SMVD, SBT;
+DMVR and BDOF in BI-symmetric pictures only), dependent quantization,
+and ALF with CC-ALF (parameters derived on the host, filters on the
+device).  All-intra frames are reconstructed in groups of up to eight
+per frame-batched wave; one temporal layer's B frames are decided frame
+by frame and reconstructed in one frame-batched wave.  The bitstreams are byte-identical to the
 reference engine's and to the spec model's.  Anything outside the slice
 raises.
 """
@@ -27,6 +28,7 @@ from ..coding import decide as tdecide
 from ..core import bitstream as bs
 from ..core import trace as _trace
 from ..kernels import loopfilter as lfk
+from ..spec import alf as salf
 from ..spec import codec as scodec
 from ..spec import hls
 from ..spec import sequence as sseq
@@ -34,10 +36,8 @@ from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
 # EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("tskip", "jccr", "sbt", "dq", "mtt", "tt", "ibc", "plt", "lmcs",
-              "alf", "mctf")
-_SPS_OFF = ("ts", "jccr", "sbt", "dq", "mtt", "tt", "ibc", "plt", "lmcs",
-            "alf")
+_OFF_TOOLS = ("tskip", "jccr", "mtt", "tt", "ibc", "plt", "lmcs", "mctf")
+_SPS_OFF = ("ts", "jccr", "mtt", "tt", "ibc", "plt", "lmcs")
 # frames per frame-batched wave
 _GROUP = 8
 
@@ -57,8 +57,8 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
         raise ValueError("outside the PyTorch port's slice (one tile, CTU "
-                         "64, 8-bit; no SBT, DQ, ALF, MTT, IBC, palette, "
-                         "TS, JCCR, LMCS or MCTF): " + ", ".join(bad))
+                         "64, 8-bit; no MTT, IBC, palette, TS, JCCR, LMCS "
+                         "or MCTF): " + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -79,7 +79,8 @@ def _wave_tools(sps: hls.SPS, sym: bool) -> dict:
                 cclm=sps.cclm_enabled, mip=sps.mip_enabled,
                 ciip=sps.ciip_enabled, gpm=sps.gpm_enabled,
                 affine=sps.affine_enabled, dmvr=sps.dmvr_enabled and sym,
-                bdof=sps.bdof_enabled and sym)
+                bdof=sps.bdof_enabled and sym, sbt=sps.sbt_enabled,
+                dq=sps.dq_enabled)
 
 
 def _decide_tools(sps: hls.SPS, stype) -> dict:
@@ -259,44 +260,59 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
     chains = [_filter_frame(cfg, sps, dec, padded, e[0], qp, out, dpb,
                             stage_times, dev)
               for e, dec, padded, out in zip(grp, decs, padded_l, outs)]
-    for (poc, stype, ref_pocs, _), dec, out, chain in zip(grp, decs, outs,
-                                                          chains):
+    for (poc, stype, ref_pocs, _), dec, out, (chain, alf_params) in zip(
+            grp, decs, outs, chains):
         _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, out,
-                    chain, mot, nals, recons, bits, pool, stage_times, dev)
+                    chain, alf_params, mot, nals, recons, bits, pool,
+                    stage_times, dev)
     return decs
 
 
 def _filter_frame(cfg, sps, dec, padded, poc, qp, scan_out, dpb,
                   stage_times, dev):
-    """Loop filters of one reconstructed frame on the device; with a
-    ``dpb``, its padded reference goes in.  Returns the filter chain's
-    device outputs (planes and SAO parameters)."""
+    """Loop filters of one reconstructed frame on the device: deblock and
+    SAO, then, with ALF, one fetch of the planes, the ALF parameters
+    derived on the host and the filter applied on the device; with a
+    ``dpb``, its padded reference goes in.  Returns (the filter chain's
+    device outputs (planes and SAO parameters), ALF parameters or
+    None)."""
     lam_sao = int(round(0.57 * (2.0 ** ((qp - 12) / 3.0)) * 256.0))
     with _stage("loopfilter", stage_times, dev):
         chain = lfk.finish_frame_j(
             list(scan_out[:3]), dec, qp, lam_sao, padded, ctu=cfg.ctu,
             bd=cfg.bit_depth, deblock_on=sps.deblock_enabled,
             sao_on=sps.sao_enabled)
-        if dpb is not None:
-            dpb[poc] = recon.pad_refs_dev(chain[:3])
-    return chain
+    alf_params = None
+    if sps.alf_enabled:
+        with _stage("alf", stage_times, dev):
+            alf_params = salf.derive_alf_frame(padded, _fetch(chain[:3]), qp,
+                                               cfg.ctu, cfg.bit_depth)
+            chain = tuple(lfk.apply_alf_frame(chain[:3], alf_params,
+                                              cfg.ctu, cfg.bit_depth)) \
+                + tuple(chain[3:])
+    if dpb is not None:
+        dpb[poc] = recon.pad_refs_dev(chain[:3])
+    return chain, alf_params
 
 
 def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
-                chain, mot, nals, recons, bits, pool, stage_times, dev):
+                chain, alf_params, mot, nals, recons, bits, pool,
+                stage_times, dev):
     """Tail of one frame: one fetch of its levels, tool planes and filter
     outputs, the chosen tool indices into ``dec``, then host entropy and
     NAL units (on the pool's worker when there is one)."""
     is_intra = stype == hls.SLICE_I
     with _stage("fetch", stage_times, dev):
-        (ly, lcb, lcr, mtsp, lfnstp, cmodep, cy, ccb, ccr, sao_t, sao_o,
-         sao_b) = _fetch(list(scan_out[3:9]) + list(chain))
+        (ly, lcb, lcr, mtsp, lfnstp, cmodep, sbtp, cy, ccb, ccr, sao_t,
+         sao_o, sao_b) = _fetch(list(scan_out[3:10]) + list(chain))
     if sps.mts_enabled:
         dec.mts8[:] = mtsp.astype(np.uint8)
     if sps.lfnst_enabled:
         dec.lfnst8[:] = lfnstp.astype(np.uint8)
     if sps.cclm_enabled:
         dec.cmode8[:] = cmodep.astype(np.uint8)
+    if sps.sbt_enabled:
+        dec.sbt8[:] = sbtp.astype(np.uint8)
     sh = hls.SliceHeader(poc=poc, slice_type=stype, qp_delta=qpd,
                          ref_pocs=ref_pocs, lmcs_cw=())
     rec = [cy, ccb, ccr]
@@ -312,7 +328,8 @@ def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
     def tail():
         with _stage("entropy", stage_times):
             payload = entropy.encode_frame_syntax(
-                sps, pps, sh, dec, [ly, lcb, lcr], sao_params, None, col=col)
+                sps, pps, sh, dec, [ly, lcb, lcr], sao_params, alf_params,
+                col=col)
         cropped = scodec.crop_planes(rec, sps)
         recons[poc] = cropped
         bits[poc] = 8 * len(payload)
@@ -397,11 +414,13 @@ def _parse(data: bytes, check_hash: bool):
             pps_map[p.pps_id] = p
         elif nal.nal_type in (bs.NAL_IDR_N_LP, bs.NAL_IDR_W_RADL,
                               bs.NAL_TRAIL, bs.NAL_CRA):
-            sh, dec, levels, sao_params, _alf = entropy.parse_frame_syntax(
-                nal.payload, sps, pps_map, motion=mot)
+            sh, dec, levels, sao_params, alf_params = \
+                entropy.parse_frame_syntax(nal.payload, sps, pps_map,
+                                           motion=mot)
             mot[sh.poc] = scodec.motion_record(dec, sh.ref_pocs)
             entries.append(dict(sh=sh, dec=dec, levels=levels,
-                                sao=sao_params, digest=None))
+                                sao=sao_params, alf=alf_params,
+                                digest=None))
         elif nal.nal_type == bs.NAL_SUFFIX_SEI and check_hash and entries:
             parsed = hls.read_pic_hash_sei(nal.payload)
             if parsed is not None:
@@ -418,7 +437,11 @@ def _dec_filters(e, sps, rec, qp, dpb, stage_times, dev):
         if e["sao"] is not None:
             rec = lfk.apply_sao_j(rec, e["sao"], 1 << sps.log2_ctu,
                                   sps.bit_depth)
-        dpb[e["sh"].poc] = recon.pad_refs_dev(rec)
+    if e["alf"] is not None:
+        with _stage("alf", stage_times, dev):
+            rec = lfk.apply_alf_frame(rec, e["alf"], 1 << sps.log2_ctu,
+                                      sps.bit_depth)
+    dpb[e["sh"].poc] = recon.pad_refs_dev(rec)
     return rec
 
 

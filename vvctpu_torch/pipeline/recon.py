@@ -3,10 +3,10 @@
 Host-side slot tables (copied), the shared residual/recon chain of one
 component for a batch of blocks, the phase-A pass that reconstructs every
 inter leaf of one size at once (uni- and bi-prediction with BCW weights,
-GPM blends, DMVR, BDOF and affine with PROF), and the edge padding of the
-decoded picture buffer.  Device planes carry a leading
-frame axis (F, h, w) and every block its frame index, so one pass serves
-F mutually independent frames.
+GPM blends, DMVR, BDOF and affine with PROF, the SBT choice, dependent
+quantization), and the edge padding of the decoded picture buffer.
+Device planes carry a leading frame axis (F, h, w) and every block its
+frame index, so one pass serves F mutually independent frames.
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ def _gather(plane, f, xs, ys, w: int, h: int):
 
 
 def _component(src, pred, f, xs, ys, w: int, h: int, qp: int, bd: int,
-               encode: bool, rdoq: bool = False, lam_rd: int = 0):
+               encode: bool, rdoq: bool = False, lam_rd: int = 0,
+               dq: bool = False):
     """Residual + recon of a batch of (h, w) component blocks with the
     given predictions (twin of recon._component and wave._comp_local).
 
@@ -47,15 +48,15 @@ def _component(src, pred, f, xs, ys, w: int, h: int, qp: int, bd: int,
         resi = _gather(src, f, xs, ys, w, h).to(torch.int32) - pred
         coef = transform.forward_transform(resi, h, w, bd=bd)
         lev = transform.quantize(coef, h, w, qp, intra=True, bd=bd,
-                                 rdoq=rdoq, lam_rd=lam_rd)
+                                 rdoq=rdoq, lam_rd=lam_rd, dq=dq)
     else:
         lev = _gather(src, f, xs, ys, w, h)
-    rec = transform.reconstruct(pred, lev, h, w, qp, bd=bd)
+    rec = transform.reconstruct(pred, lev, h, w, qp, bd=bd, dq=dq)
     return rec, lev
 
 
 def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
-              rdoq: bool, lam_rd: int):
+              rdoq: bool, lam_rd: int, dq: bool = False):
     """Chroma prediction choice of a batch of leaves (twin of the
     reference's chroma_rd_j): each (Cb, Cr) prediction pair of
     ``pred_opts`` (DM first, then CCLM) is coded, reconstructed and costed
@@ -71,9 +72,9 @@ def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
            + [bcrk - pcr for _, pcr in pred_opts])
     coef = transform.forward_transform(torch.stack(res, 1), cs, cs, bd=bd)
     lev = transform.quantize(coef, cs, cs, qp, intra=True, bd=bd,
-                             rdoq=rdoq, lam_rd=lam_rd)
+                             rdoq=rdoq, lam_rd=lam_rd, dq=dq)
     rr = transform.inverse_transform(
-        transform.dequantize(lev, cs, cs, qp, bd), cs, cs, bd=bd)
+        transform.dequantize(lev, cs, cs, qp, bd, dq=dq), cs, cs, bd=bd)
     rate_fp = transform.level_rate_fp(
         lev, transform.lvl_weights(qp, dev), dims=(-2, -1)).clamp(
         max=1 << 22)
@@ -102,7 +103,8 @@ def _scatter(buf, blocks, f, xs, ys, w: int, h: int, off: int):
 def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
                       encode: bool, rdoq: bool = False, lam_rd: int = 0,
                       dmvr: bool = False, bdof: bool = False,
-                      gpm: bool = False, affine: bool = False):
+                      gpm: bool = False, affine: bool = False,
+                      sbt: bool = False, dq: bool = False):
     """Phase A: every inter s-leaf of every frame at once (twin of the
     reference's _inter_batch_pass).
 
@@ -116,7 +118,14 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
     ``bdof`` the BI leaves of equal weight outside GPM are refined per
     DMVR_SUB sub-block (mirrored integer offset) and per 4x4 (optical
     flow); with ``affine`` the leaves flagged in column 10 (s >= 16) are
-    predicted per 4x4 sub-block with PROF from dmv columns 11-12."""
+    predicted per 4x4 sub-block with PROF from dmv columns 11-12.  With
+    ``sbt`` the luma residual takes the SBT RD choice when encoding (the
+    index goes to every 8x8 granule of the leaf in carry["sbtp"], as the
+    spec model records it) and the parsed index of column 8 when
+    decoding.  The spec model records SBT only on signalled leaves (not
+    skip, not CIIP, square): phase A holds square non-CIIP leaves only,
+    and a skip leaf's all-zero luma levels give index 0.  ``dq``: dependent
+    quantization in every component."""
     rows = ib_slots[ib_slots[:, 0] < (1 << 20)]
     if rows.shape[0] == 0:
         return
@@ -174,12 +183,27 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
                 _affine_override(pred_y, pred_cb, pred_cr, slots,
                                  torch.as_tensor(ai, device=dev),
                                  refs[3 * lst:3 * lst + 3], s, bd)
-    ry, lvy = _component(carry["sy"], pred_y, f, x, y, s, s, qp, bd, encode,
-                         rdoq, lam_rd)
+    if sbt:
+        if encode:
+            sidx, lvy, rres = transform.choose_sbt(
+                _gather(carry["sy"], f, x, y, s, s) - pred_y, s, qp, lam_rd,
+                bd=bd, rdoq=rdoq, dq=dq)
+            g = torch.arange(s // 8, device=dev)
+            carry["sbtp"][f.long()[:, None, None],
+                          (y // 8).long()[:, None, None] + g[None, :, None],
+                          (x // 8).long()[:, None, None] + g[None, None, :]] \
+                = sidx[:, None, None]
+        else:
+            lvy = _gather(carry["sy"], f, x, y, s, s)
+            rres = transform.sbt_resi(lvy, rows[:, 8], s, qp, bd, dq=dq)
+        ry = (pred_y + rres).clamp(0, mx)
+    else:
+        ry, lvy = _component(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
+                             encode, rdoq, lam_rd, dq)
     rcb, lvcb = _component(carry["scb"], pred_cb, f, x // 2, y // 2, cs, cs,
-                           qp, bd, encode, rdoq, lam_rd)
+                           qp, bd, encode, rdoq, lam_rd, dq)
     rcr, lvcr = _component(carry["scr"], pred_cr, f, x // 2, y // 2, cs, cs,
-                           qp, bd, encode, rdoq, lam_rd)
+                           qp, bd, encode, rdoq, lam_rd, dq)
     _scatter(carry["by"], ry, f, x, y, s, s, 1)
     _scatter(carry["bcb"], rcb, f, x // 2, y // 2, cs, cs, 1)
     _scatter(carry["bcr"], rcr, f, x // 2, y // 2, cs, cs, 1)

@@ -6,8 +6,9 @@ availability).  The device then runs one batch per (level, leaf class)
 and scatters the block results into the recon buffers.  Phase A (every
 inter leaf, which depends on nothing in the current frame) runs first.
 One engine: an eager loop over the schedule, with the intra toolset
-(MIP, MRL, ISP, MTS, LFNST, CCLM) and CIIP on the phase-B leaves and
-VVC's inter toolset (BCW, GPM, DMVR, BDOF, affine) in phase A.  It runs F
+(MIP, MRL, ISP, MTS, LFNST, CCLM) and CIIP on the phase-B leaves,
+VVC's inter toolset (BCW, GPM, DMVR, BDOF, affine, SBT) in phase A, and
+dependent quantization in every leaf class.  It runs F
 mutually independent frames at once (one temporal layer's B frames): the
 buffers carry a leading frame axis, every row its frame index, and the
 frames' schedules merge by (level, class), so one launch sequence covers
@@ -229,7 +230,7 @@ def _scatter8(plane, vals, f, xs, ys):
 def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
                  frame_w: int, frame_h: int, n_ctu_x: int, log2_ctu: int,
                  qp: int, bd: int, encode: bool, rdoq: bool, lam_rd: int,
-                 cclm: bool):
+                 cclm: bool, dq: bool = False):
     """Chroma part of a batch of B square intra leaves: DM prediction or,
     with ``cclm``, the RD choice between DM and CCLM (encode) or the
     signalled choice ``cmode`` (decode); separate Cb/Cr residuals.  Cb
@@ -257,13 +258,13 @@ def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
             src = _gather(carry["sc"], f2, x2, y2, cs, cs)
             lev_cb, lev_cr, rcb, rcr, use_c = recon.chroma_rd(
                 src[:B], src[B:], [(pred[:B], pred[B:]), (lm[:B], lm[B:])],
-                cs, qp, bd, rdoq, lam_rd)
+                cs, qp, bd, rdoq, lam_rd, dq)
             return (torch.cat([rcb, rcr]), torch.cat([lev_cb, lev_cr]),
                     use_c)
         pred = torch.where((torch.cat([cmode, cmode]) > 0)[:, None, None],
                            lm, pred)
     rec, lev = _comp_local(carry["sc"], pred, f2, x2, y2, cs, cs, qp, bd,
-                           encode, rdoq, lam_rd)
+                           encode, rdoq, lam_rd, dq)
     return rec, lev, use_c
 
 
@@ -292,7 +293,8 @@ def _put_leaf(carry, f, x, y, s: int, rec_y, lev_y, chroma, encode: bool,
 def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
                  frame_w: int, frame_h: int, log2_ctu: int, bd: int,
                  encode: bool, rdoq: bool, mts: bool = False,
-                 lfnst: bool = False, cclm: bool = False, mip: bool = False):
+                 lfnst: bool = False, cclm: bool = False, mip: bool = False,
+                 dq: bool = False):
     """One dependency level's square intra s-leaves (of any frames):
     predict (angular on the row's reference line, or MIP), code and
     reconstruct luma (with the MTS/LFNST choice) and chroma, scatter into
@@ -321,29 +323,30 @@ def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
         resi = _gather(carry["sy"], f, x, y, s, s) - pred_y
         midx, lidx, lev_y, rres = transform.choose_tx(
             resi, s, qp, lam_rd, mode_reg, bd, mts=mts, lfnst=lfnst,
-            rdoq=rdoq, allow=(mode < nm) if mip else None)
+            rdoq=rdoq, allow=(mode < nm) if mip else None, dq=dq)
         rec_y = (pred_y + rres).clamp(0, (1 << bd) - 1)
     elif (mts or lfnst) and host[:, 6:8].any():
         lev_y = _gather(carry["sy"], f, x, y, s, s)
-        dqc = transform.dequantize(lev_y, s, s, qp, bd)
+        dqc = transform.dequantize(lev_y, s, s, qp, bd, dq=dq)
         if host[:, 7].any():
             dqc = transform.inv_lfnst_switch(dqc, rows[:, 7], mode_reg)
         rres = transform.inverse_transform_rows(dqc, s, rows[:, 6], bd)
         rec_y = (pred_y + rres).clamp(0, (1 << bd) - 1)
     else:
         rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp,
-                                   bd, encode, rdoq, lam_rd)
+                                   bd, encode, rdoq, lam_rd, dq)
     chroma = _chroma_leaf(
         carry, rec_y, f, x, y, mode_dm, rows[:, 8], s=s, frame_w=frame_w,
         frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
         encode=encode, rdoq=rdoq, lam_rd=lam_rd,
-        cclm=cclm and (encode or bool(host[:, 8].any())))
+        cclm=cclm and (encode or bool(host[:, 8].any())), dq=dq)
     _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode, midx, lidx)
 
 
 def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
                frame_w: int, frame_h: int, log2_ctu: int, bd: int,
-               encode: bool, rdoq: bool, cclm: bool = False):
+               encode: bool, rdoq: bool, cclm: bool = False,
+               dq: bool = False):
     """One dependency level's ISP s-leaves split in direction ``d``: the
     stripes run in order, each predicted from a per-row window of the
     recon buffer that the previous stripes' recon patches in place, with
@@ -369,24 +372,25 @@ def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
                 _gather(carry["sy"], f, px, py, w_st, h_st) - pred, h_st,
                 w_st, kh, kv, bd)
             lev = transform.quantize(coef, h_st, w_st, qp, intra=True,
-                                     bd=bd, rdoq=rdoq, lam_rd=lam_rd)
+                                     bd=bd, rdoq=rdoq, lam_rd=lam_rd, dq=dq)
             lev_y[:, dy:dy + h_st, dx:dx + w_st] = lev
         else:
             lev = _gather(carry["sy"], f, px, py, w_st, h_st)
         win[:, dy + 1:dy + 1 + h_st, dx + 1:dx + 1 + w_st] = \
-            transform.reconstruct(pred, lev, h_st, w_st, qp, kh, kv, bd)
+            transform.reconstruct(pred, lev, h_st, w_st, qp, kh, kv, bd,
+                                  dq=dq)
     rec_y = win[:, 1:s + 1, 1:s + 1]
     chroma = _chroma_leaf(
         carry, rec_y, f, x, y, mode_reg, rows[:, 8], s=s, frame_w=frame_w,
         frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
         encode=encode, rdoq=rdoq, lam_rd=lam_rd,
-        cclm=cclm and (encode or bool(host[:, 8].any())))
+        cclm=cclm and (encode or bool(host[:, 8].any())), dq=dq)
     _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode)
 
 
 def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
                 frame_w: int, frame_h: int, log2_ctu: int, bd: int,
-                encode: bool, rdoq: bool):
+                encode: bool, rdoq: bool, dq: bool = False):
     """One dependency level's CIIP s-leaves: the merge candidate's MC
     prediction (L0, L1 or the BCW-weighted average) averaged with the
     planar intra prediction from the reconstructed neighbours, in luma
@@ -424,7 +428,7 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
                + planar(carry["by"], x, y, f, s, True) + 1) >> 1).clamp(0,
                                                                       mx)
     rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
-                               encode, rdoq, lam_rd)
+                               encode, rdoq, lam_rd, dq)
     # Cb and Cr as one batch of 2B rows over the stacked chroma planes
     x2, y2, f2 = (torch.cat([x // 2, x // 2]), torch.cat([y // 2, y // 2]),
                   torch.cat([f, f + F]))
@@ -433,7 +437,7 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     pred_c = ((mc_c + planar(carry["bc"], x2, y2, f2, cs, False) + 1)
               >> 1).clamp(0, mx)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
-                               bd, encode, rdoq, lam_rd)
+                               bd, encode, rdoq, lam_rd, dq)
     _put_leaf(carry, f, x, y, s, rec_y, lev_y, (rec_c, lev_c, None), encode)
 
 
@@ -455,8 +459,8 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
     frame, or (l0 y, cb, cr, l1 y, cb, cr) of a B frame, and inter:
     {8/16/32: numpy phase-A rows}; tools: the intra tool flags of
     frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr, levels_y,
-    levels_cb, levels_cr, mts, lfnst, cmode); the last three are the 8x8
-    grids of the chosen tool indices (encoding; zero when decoding)."""
+    levels_cb, levels_cr, mts, lfnst, cmode, sbt); the last four are the
+    8x8 grids of the chosen tool indices (encoding; zero when decoding)."""
     fr = dict(slots=slots, py=planes_y, pcb=planes_cb, pcr=planes_cr)
     if inter_enabled:
         fr.update(refs=refs, inter=inter)
@@ -471,7 +475,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                      lfnst: bool = False, cclm: bool = False,
                      mip: bool = False, ciip: bool = False,
                      dmvr: bool = False, bdof: bool = False,
-                     gpm: bool = False, affine: bool = False):
+                     gpm: bool = False, affine: bool = False,
+                     sbt: bool = False, dq: bool = False):
     """Reconstruct F mutually independent frames of one slice type and QP
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
@@ -480,8 +485,9 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     frames share.  mts, lfnst, cclm, mip: the SPS intra tools (MRL and
     ISP are read from the slot rows); ciip: the CIIP leaf class of phase
     B; dmvr, bdof, gpm, affine: phase A's inter tools (DMVR and BDOF only
-    for BI-symmetric frames, as the callers gate them).  Returns a list
-    of per-frame 9-tuples, each equal to frame_wave's for that frame
+    for BI-symmetric frames, as the callers gate them); sbt: SBT in phase
+    A; dq: dependent quantization in every leaf class.  Returns a list
+    of per-frame 10-tuples, each equal to frame_wave's for that frame
     alone."""
     F = len(frames_in)
     dev = frames_in[0]["py"].device
@@ -507,7 +513,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     carry.update(
         mtsp=z(frame_h // 8, frame_w // 8),
         lfnstp=z(frame_h // 8, frame_w // 8),
-        cmodep=z(frame_h // 8, frame_w // 8))
+        cmodep=z(frame_h // 8, frame_w // 8),
+        sbtp=z(frame_h // 8, frame_w // 8))
     refs = None
     if frames_in[0].get("refs") is not None:
         # a P frame's three planes serve both lists
@@ -522,7 +529,7 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                  for f, fr in enumerate(frames_in)])
             recon._inter_batch_pass(carry, rows, refs, s_sz, qp, bd, encode,
                                     rdoq, lam_rd, dmvr=dmvr, bdof=bdof,
-                                    gpm=gpm, affine=affine)
+                                    gpm=gpm, affine=affine, sbt=sbt, dq=dq)
 
     sched = build_schedule_batch([fr["slots"] for fr in frames_in], frame_h,
                                  frame_w)
@@ -533,7 +540,7 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         all_rows = torch.as_tensor(
             np.concatenate([rows for _, rows in sched]), device=dev)
     kw = dict(frame_w=frame_w, frame_h=frame_h, log2_ctu=log2_ctu, bd=bd,
-              encode=encode, rdoq=rdoq)
+              encode=encode, rdoq=rdoq, dq=dq)
     global batches
     batches += len(sched)
     o = 0
@@ -555,5 +562,6 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
              carry["bcb"][f, 1:h2 + 1, 1:w2 + 1],
              carry["bcr"][f, 1:h2 + 1, 1:w2 + 1],
              carry["ly"][f], carry["lcb"][f], carry["lcr"][f],
-             carry["mtsp"][f], carry["lfnstp"][f], carry["cmodep"][f])
+             carry["mtsp"][f], carry["lfnstp"][f], carry["cmodep"][f],
+             carry["sbtp"][f])
             for f in range(F)]

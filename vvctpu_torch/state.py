@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .spec.alf import AlfParams
 from .spec.codec import FrameDecisions
 
 
@@ -22,19 +23,32 @@ def refs_from_numpy(planes, device):
                  for p in planes)
 
 
-def decisions_from_numpy(obj_or_dict) -> FrameDecisions:
-    """A FrameDecisions with every field read by name from an object with
-    those attributes or from a dict (arrays copied)."""
+def _fields_from(cls, obj_or_dict):
+    """A ``cls`` dataclass with every field read by name from an object
+    with those attributes or from a dict (arrays copied)."""
     def get(name):
         if isinstance(obj_or_dict, dict):
             return obj_or_dict[name]
         return getattr(obj_or_dict, name)
 
     vals = {}
-    for f in dataclasses.fields(FrameDecisions):
+    for f in dataclasses.fields(cls):
         v = get(f.name)
         vals[f.name] = np.array(v) if isinstance(v, np.ndarray) else v
-    return FrameDecisions(**vals)
+    return cls(**vals)
+
+
+def decisions_from_numpy(obj_or_dict) -> FrameDecisions:
+    """A FrameDecisions with every field read by name from an object with
+    those attributes or from a dict (arrays copied)."""
+    return _fields_from(FrameDecisions, obj_or_dict)
+
+
+def alf_params_from_numpy(obj_or_dict) -> AlfParams:
+    """The ALF and CC-ALF parameters of a picture (filters, class and
+    component switches, CTU flags) as the port's AlfParams, read by name
+    in the same way."""
+    return _fields_from(AlfParams, obj_or_dict)
 
 
 def tables_from_numpy(tables: dict, device=None) -> dict:
