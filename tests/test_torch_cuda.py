@@ -184,22 +184,33 @@ def test_cclm_card_equals_cpu(cuda, s):
     assert torch.equal(outs[0].cpu(), outs[1])
 
 
-@pytest.mark.parametrize("hw", [(4, 4), (8, 8), (32, 32), (8, 16), (32, 8)])
+@pytest.mark.parametrize("hw", [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64),
+                                (8, 16), (32, 8), (4, 16), (32, 16)])
 def test_dq_trellis_kernel_equals_twin(cuda, hw):
-    """The trellis kernel against its plain twin on noisy, all-zero,
-    saturated and flat blocks at qp 22 and 37; one launch per call."""
-    from chip_smoke import _dq_cases
+    """The fused trellis kernel against its plain twin on signed noisy,
+    all-zero, saturated and flat blocks at qp 22 and 37, for B in {1, 31,
+    33} and every lane count the kernel takes (4x4 at 16 lanes is two
+    blocks per warp; 0 is the launch's own choice); one launch per
+    call."""
+    from chip_smoke import _dq_raster
     from vvctpu_torch.kernels import dq as kdq
     from vvctpu_torch.spec.transform import lambda_rd_int
     h, w = hw
-    a = torch.as_tensor(_dq_cases(np.random.default_rng(h + w), h, w),
-                        device=cuda)
+    rng = np.random.default_rng(h + w)
+    coef = np.concatenate([_dq_raster(rng, h, w), _dq_raster(rng, h, w)[:2]])
+    walk = torch.as_tensor(ttf.walk32(h, w), device=cuda)
     for qp in (22, 37):
         p = ttf.dq_params(h, w, qp, lambda_rd_int(qp))
-        before = kdq.launches
-        got = kdq.dq_trellis(a, *p)
-        assert kdq.launches == before + 1
-        assert torch.equal(got, kdq.quantize_dq_reference(a, *p))
+        for B in (1, 31, 33):
+            c = torch.as_tensor(coef[:B], device=cuda)
+            want = kdq.dq_trellis_plain(c, walk, *p)
+            for lanes in (0,) + kdq.LANES:
+                if lanes and not kdq.lanes_ok(h * w, lanes):
+                    continue
+                before = kdq.launches
+                got = kdq.dq_trellis(c, walk, *p, lanes=lanes)
+                assert kdq.launches == before + 1
+                assert torch.equal(got, want), (qp, B, lanes)
 
 
 def test_sbt_dq_alf_card_equals_cpu(cuda):

@@ -71,9 +71,14 @@ def _jit(key, fn, in_axes=0):
 def _dq_blocks(h, w, kind):
     """(4, h, w) coefficients: three seeded blocks (test_depquant's
     generator) and an all-zero one; "flat" a constant block, where the
-    trellis ties everywhere; "max" the coefficient extremes."""
+    trellis ties everywhere; "max" the coefficient extremes; "sparse"
+    blocks where the trellis gives a zero coefficient a nonzero level."""
     c = np.stack([rand_coef(h, w, seed=7 * h + w + k) for k in range(3)]
                  + [np.zeros((h, w), np.int32)])
+    if kind == "sparse":
+        rng = np.random.default_rng(4)
+        c[:3] = (rng.integers(-3, 4, (3, h, w)) * rng.integers(0, 2, (3, h, w))
+                 * rng.choice([40, 300], (3, 1, 1)))
     if kind == "flat":
         c[:3] = np.asarray([100, -37, 1])[:, None, None]
     elif kind == "max":
@@ -85,12 +90,13 @@ def _dq_blocks(h, w, kind):
 @pytest.mark.parametrize("h,w,kind", [
     (4, 4, "seed"), (8, 8, "seed"), (16, 16, "seed"), (32, 32, "seed"),
     (8, 4, "seed"), (64, 64, "seed"), (16, 32, "seed"), (8, 8, "flat"),
-    (16, 32, "max")])
+    (16, 32, "max"), (8, 8, "sparse")])
 def test_dq_equals_reference(h, w, kind):
     """quantize_dq (the trellis twin), dq_states and dequantize_dq on a
     batch of blocks equal quantize_dq_j, dq_states_j and dequantize_dq_j
     at qp 22 and 37: the shapes of test_depquant.py's twin test, 64x64,
-    an SBT half, flat ties and saturated coefficients."""
+    an SBT half, flat ties, saturated coefficients and a zero coefficient
+    that takes a level."""
     coef = _dq_blocks(h, w, kind)
 
     def twins(c, v, qp, lam):
@@ -117,13 +123,14 @@ def test_dq_equals_reference(h, w, kind):
 def test_dq_trellis_on_cpu_is_the_twin():
     """On a CPU tensor the wrapper takes the plain twin and launches
     nothing; the quantize/dequantize entry points route dq=True there."""
-    a = T(np.abs(_dq_blocks(8, 8, "seed")).reshape(4, 64).T.copy())
+    coef = T(_dq_blocks(8, 8, "seed"))
+    walk = T(ttf.walk32(8, 8))
     before = tdq.launches
     args = ttf.dq_params(8, 8, 27, lambda_rd_int(27))
-    np.testing.assert_array_equal(tdq.dq_trellis(a, *args).numpy(),
-                                  tdq.quantize_dq_reference(a, *args).numpy())
+    np.testing.assert_array_equal(tdq.dq_trellis(coef, walk, *args).numpy(),
+                                  tdq.dq_trellis_plain(coef, walk,
+                                                       *args).numpy())
     assert tdq.launches == before
-    coef = T(_dq_blocks(8, 8, "seed"))
     lam = lambda_rd_int(27)
     assert torch.equal(ttf.quantize(coef, 8, 8, 27, rdoq=True, lam_rd=lam,
                                     dq=True),

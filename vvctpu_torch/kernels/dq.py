@@ -4,17 +4,20 @@ A main-path stage that earned a hand kernel (not a TPU kernel): the
 reference runs it as a ``lax.scan`` Viterbi in
 ``vvctpu/kernels/transform.py:232 quantize_dq_j``, which eager PyTorch
 would run as tens of small operations per coefficient position.  The
-kernel (``csrc/dq_trellis.cu``) gives each transform block one thread that
-walks its positions in coding order with the four state costs in
-registers and the back-pointers in a global scratch, then traces back.
+kernel (``csrc/dq_trellis.cu``) gives each transform block L lanes
+(``lanes_for``: a warp per block at the main path's small batches, more
+blocks per warp as the batch grows): the lanes compute a tile of
+positions' step costs in parallel, run the four-state chain over the
+tile with a few dependent integer operations per position, keep 4-bit
+back-pointers in shared memory, trace back and write the signed levels.
 
-Both take the absolute coefficients of B blocks of n positions each in
-walk order, position-major ``(n, B)`` so that a warp reads consecutive
-words, and return the levels in the same layout; the gather into walk
-order, the signs and the scatter back stay in ``kernels/transform.py``.
+Both take the signed raster coefficients of B blocks and the walk table
+(the raster position of each walk step, ``transform.walk32``) and return
+signed raster levels: the gather into walk order, the signs and the
+scatter back are part of the one launch.
 
 ``dq_trellis`` launches the kernel for CUDA tensors and takes the plain
-PyTorch twin ``quantize_dq_reference`` only for CPU tensors.  The kernel is
+PyTorch twin ``dq_trellis_plain`` only for CPU tensors.  The kernel is
 built with nvcc at first use into ``vvctpu_torch/_build/`` and bound with
 ctypes.
 """
@@ -34,8 +37,44 @@ _SENTINEL = 1 << 30
 
 # kernel launches since the count was last set to 0
 launches = 0
+# None, or a list to which each launch appends its (h, w, B)
+trace = None
 
 _LIB = None
+
+LANES = (32, 16, 8)
+SMEM_LIMIT = 96 * 1024      # csrc/dq_trellis.cu kSmemLimit
+
+
+def warp_smem(n: int, lanes: int) -> int:
+    """Bytes of shared memory one warp of the kernel takes (csrc
+    warp_smem): the tile's steps and costs (1 KiB), and per block n / 2
+    bytes of bits, n + 1 words of coefficients and the trace back's 4
+    copies of the bits (n / 8 + 1 words each)."""
+    return 64 * 16 + 32 // lanes * (n // 8 + n + 1 + 4 * (n // 8 + 1)) * 4
+
+
+def lanes_ok(n: int, lanes: int) -> bool:
+    """Whether the kernel takes ``lanes`` lanes per block of n positions:
+    at most n, and one warp's shared memory within the CTA's limit."""
+    return lanes <= n and warp_smem(n, lanes) <= SMEM_LIMIT
+
+
+def lanes_for(n: int, B: int) -> int:
+    """Lanes per block for B blocks of n positions: a warp per block up to
+    512 blocks, then the most lanes that keep the launch within 1024 warps
+    (about two per warp scheduler of an H100), at least 8.  Fewer lanes
+    put more blocks in a warp, which share its chain's instructions, at
+    the cost of a longer walk per lane (chip_smoke.py dq_lanes_sweep
+    times every lane count from 1 to 32640 blocks of 4x4 up to 64x64).
+    Raised where a warp's shared memory would not fit."""
+    lanes = 32 if B <= 512 else 16
+    while lanes > 8 and B * lanes > 32768:
+        lanes //= 2
+    lanes = min(lanes, n)
+    while not lanes_ok(n, lanes):
+        lanes *= 2
+    return lanes
 
 
 def build(verbose: bool = False) -> str:
@@ -47,40 +86,71 @@ def build(verbose: bool = False) -> str:
     lib, log = cuda_build.load("dq_trellis", verbose)
     lib.dq_trellis_launch.restype = ctypes.c_int
     lib.dq_trellis_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     _LIB = lib
     return log
 
 
-def dq_trellis(a, qscale: int, q_bits: int, iq: int, net: int, lam: int):
-    """Levels (n, B) int32 of the trellis over B blocks.
+def dq_trellis(coef, walk, qscale: int, q_bits: int, iq: int, net: int,
+               lam: int, lanes: int = 0):
+    """Signed levels (B, h, w) int32 of the trellis over B blocks.
 
-    a: (n, B) int32 absolute coefficients (at most 32768), position-major
-    in walk order; qscale, q_bits: the forward quantizer's scale and
-    shift; iq, net: the inverse scale and the net shift
-    ``qp // 6 - (shift + 1)`` of the state-dependent dequantizer; lam: the
-    lambda, already scaled and clamped to 2^22."""
+    coef: (B, h, w) int32 signed coefficients (magnitudes at most 32768);
+    walk: (h * w,) int32 raster position of each walk step
+    (``transform.walk32``), on coef's device; qscale, q_bits: the forward
+    quantizer's scale and shift; iq, net: the inverse scale and the net
+    shift ``qp // 6 - (shift + 1)`` of the state-dependent dequantizer;
+    lam: the lambda, already scaled and clamped to 2^22; lanes: lanes per
+    block (one of LANES; 0: ``lanes_for``)."""
     global launches
-    if a.dim() != 2 or a.dtype != torch.int32:
-        raise TypeError("a must be a 2-D int32 tensor")
-    if a.device.type == "cpu":
-        return quantize_dq_reference(a, qscale, q_bits, iq, net, lam)
-    if a.device.type != "cuda":
-        raise ValueError(f"dq_trellis runs on cuda or cpu, not {a.device}")
+    if coef.dim() != 3 or coef.dtype != torch.int32:
+        raise TypeError("coef must be a 3-D int32 tensor")
+    B, h, w = coef.shape
+    n = h * w
+    if walk.shape != (n,) or walk.dtype != torch.int32:
+        raise TypeError(f"walk must be a ({n},) int32 tensor")
+    if coef.device.type == "cpu":
+        return dq_trellis_plain(coef, walk, qscale, q_bits, iq, net, lam)
+    if coef.device.type != "cuda":
+        raise ValueError(f"dq_trellis runs on cuda or cpu, not {coef.device}")
+    if walk.device != coef.device:
+        raise ValueError("walk must lie on coef's device")
+    if n < 8 or n & (n - 1):
+        raise ValueError(f"dq_trellis takes blocks of 2^k >= 8 positions, "
+                         f"not {n}")
     build()
-    a = a.contiguous()
-    n, B = a.shape
-    out = torch.empty_like(a)
-    scratch = torch.empty((n, 4, B), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _LIB.dq_trellis_launch(a.data_ptr(), out.data_ptr(),
-                                     scratch.data_ptr(), n, B, qscale,
-                                     q_bits, iq, net, lam, stream)
+    coef, walk = coef.contiguous(), walk.contiguous()
+    out = torch.empty_like(coef)
+    if B == 0:
+        return out
+    lanes = lanes or lanes_for(n, B)
+    with torch.cuda.device(coef.device):
+        stream = torch.cuda.current_stream(coef.device).cuda_stream
+        err = _LIB.dq_trellis_launch(coef.data_ptr(), walk.data_ptr(),
+                                     out.data_ptr(), n, B, qscale, q_bits,
+                                     iq, net, lam, lanes, stream)
     if err != 0:
         raise RuntimeError(f"dq_trellis launch failed: cudaError {err}")
     launches += 1
+    if trace is not None:
+        trace.append((h, w, B))
     return out
+
+
+def dq_trellis_plain(coef, walk, qscale: int, q_bits: int, iq: int,
+                     net: int, lam: int):
+    """Plain PyTorch twin of the kernel: the absolute values gathered into
+    walk order, ``quantize_dq_reference``, the signs and the scatter
+    back (a level keeps its sign at a zero coefficient, as in
+    quantize_dq_j)."""
+    B, h, w = coef.shape
+    c = coef.reshape(B, h * w)
+    idx = walk.long()
+    lev = quantize_dq_reference(c.abs().t()[idx], qscale, q_bits, iq, net,
+                                lam)                      # (n, B) walk
+    out = torch.empty_like(c)
+    out[:, idx] = lev.t()
+    return torch.where(c < 0, -out, out).reshape(B, h, w)
 
 
 # per flattened candidate (state-major, then level 0 / lf / lf + 1): its
@@ -91,8 +161,10 @@ _TRANS = np.asarray(DQ_TRANS, np.int64)                   # (4, 2)
 
 def quantize_dq_reference(a, qscale: int, q_bits: int, iq: int, net: int,
                           lam: int):
-    """Plain PyTorch twin of the kernel (twin of the reference's
-    quantize_dq_j scan, same candidate order and first-min tie-breaks):
+    """Levels (n, B) int32 of the trellis over B blocks of walk-ordered
+    absolute coefficients a (n, B), position-major: the twin of the
+    reference's quantize_dq_j scan (same candidate order and first-min
+    tie-breaks) and an independent check of the kernel's reduction:
     every candidate's level, step cost and target state are computed for
     all positions at once; the loop over positions carries only the four
     running costs, each step a masked first minimum over the 12

@@ -243,18 +243,27 @@ def dq_params(h: int, w: int, qp: int, lam_rd: int, bd: int = 8):
             min(int(lam_rd) << max(2 * ts, 0), 1 << 22))
 
 
+_WALK32: dict = {}
+
+
+def walk32(h: int, w: int):
+    """The walk table of (h, w) blocks as int32 numpy, the trellis
+    kernel's index input: the raster position of each walk step."""
+    key = (h, w)
+    if key not in _WALK32:
+        _WALK32[key] = _walk(h, w)[0].astype(np.int32)
+    return _WALK32[key]
+
+
 def quantize_dq(coef, h: int, w: int, qp: int, lam_rd: int, bd: int = 8):
     """Trellis dependent quantization of (..., h, w) coefficients (twin of
-    quantize_dq_j): the absolute values gathered into walk order, one
-    dq_trellis over every block, the signs and the scatter back."""
+    quantize_dq_j): one dq_trellis over every block, which gathers into
+    walk order, quantizes, signs and scatters back."""
     from .dq import dq_trellis      # dq builds on this module's helpers
-    fwd, inv = _walk(h, w)
-    dev = coef.device
-    c = coef.reshape(-1, h * w).to(torch.int32)
-    a = c.abs().t()[const(fwd, dev)]                      # (n, B) walk
-    lev = dq_trellis(a, *dq_params(h, w, qp, lam_rd, bd))
-    out = torch.sign(c) * lev[const(inv, dev)].t()
-    return out.reshape(coef.shape)
+    c = coef.reshape(-1, h, w).to(torch.int32)
+    lev = dq_trellis(c, const(walk32(h, w), coef.device),
+                     *dq_params(h, w, qp, lam_rd, bd))
+    return lev.reshape(coef.shape)
 
 
 # ---------------------------------------------------------------------------
