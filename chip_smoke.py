@@ -60,7 +60,27 @@ Phases, in order; any failure exits non-zero:
    peak memory and the trellis's launches, blocks, median and largest
    batch per block shape; then the trellis held against its twin and
    timed at each of those shapes at its median batch and at one block,
-   and the path's launches x time per encode.
+   and the path's launches x time per encode;
+7. the multi-type tree (BT and TT splits), as every VVC common test
+   condition partitions: (7a) a 4-frame 64x96 all-intra clip with MTT,
+   TT, MIP, MRL and ISP, and the 64x256 GOP4 clip of 6a with config #4's
+   toolset, MTT and TT, encoded on the card must equal the spec model's
+   bitstream and decisions and decode on the card and in the spec model,
+   hashes verified, with me_sad at 11 keys once per P frame and once per
+   list for each B frame; the rect decision passes, the rect intra leaf
+   class and phase A of rect inter leaves (with and without DQ) on the
+   card must equal the CPU path on worst-case batches; (7b) 3 frames of
+   1080p (I0 P2 B1) with config #4's toolset, MTT and TT: hashes
+   verified, recon == decoded, 3 me_sad launches at 11 keys, with the
+   rect leaves per shape, stage and per-layer times, the phase-B batches
+   per leaf class, the trellis per block shape (the 12 rect shapes among
+   them) timed against its twin, and the decide stage of one I, P and B
+   frame with and without MTT and its rect passes timed.  Every rect
+   shape and both TT directions must occur in 7a and 7b together.  Phase
+   7 runs in a process of its own beside phases 5 and 6, so the walls
+   and card busy shares of phases 5, 6 and 7 are measured with both
+   running (the card's busy share is the device's); its lines print
+   after phase 6.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -357,6 +377,7 @@ def phase_dq_kernel(dev):
     print(f"[1] dq_trellis: equal to twin (tolerance 0, max abs err {err}) "
           f"on {n_cases} (shape, qp, lanes) batches of {c.shape[0]} signed "
           f"blocks: {', '.join(f'{h}x{w}' for h, w in shapes)}")
+    err = max(err, _dq_rect_cases(dev, rng))
     mhz = sm_clock_mhz()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -385,6 +406,43 @@ def phase_dq_kernel(dev):
           f"time, {100 * bound / graph:.2f} % of the graph time")
     return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound,
                 bound_by=by)
+
+
+def _dq_rect_cases(dev, rng):
+    """The trellis against its twin (tolerance 0) at the transform-block
+    shapes of the multi-type tree's rect leaves (phase 7), at one block
+    and at 300, each at the lane count ``lanes_for`` picks, which must be
+    one the kernel takes; returns the largest error."""
+    from vvctpu_torch.kernels import dq as kdq
+    from vvctpu_torch.kernels import transform as ktf
+    from vvctpu_torch.pipeline import plan as tplan
+    from vvctpu_torch.spec.transform import lambda_rd_int
+    shapes = sorted({(h // c, w // c) for w, h in tplan.RECT_SHAPES
+                     for c in (1, 2)})
+    err, lanes = 0, {}
+    for h, w in shapes:
+        walk = torch.as_tensor(ktf.walk32(h, w), device=dev)
+        p = ktf.dq_params(h, w, 32, lambda_rd_int(32))
+        for B in (1, 300):
+            la = kdq.lanes_for(h * w, B)
+            if la not in kdq.LANES or not kdq.lanes_ok(h * w, la):
+                raise AssertionError(f"dq_trellis: lanes_for gives {la} "
+                                     f"lanes for {B} blocks of {h}x{w}")
+            lanes[(h, w, B)] = la
+            c = torch.as_tensor(_dq_noisy(rng, h, w, B), device=dev)
+            e = int((kdq.dq_trellis(c, walk, *p)
+                     - kdq.dq_trellis_plain(c, walk, *p)).abs().max())
+            if e != 0:
+                raise AssertionError(f"dq_trellis differs from its twin on "
+                                     f"{B} blocks of {h}x{w}: max abs err "
+                                     f"{e}")
+            err = max(err, e)
+    print(f"[1] dq_trellis at the {len(shapes)} rect block shapes of the "
+          f"multi-type tree (h x w), 1 and 300 blocks: equal to twin "
+          f"(tolerance 0); lanes per block (1, 300 blocks): " + ", ".join(
+              f"{h}x{w} {lanes[(h, w, 1)]}/{lanes[(h, w, 300)]}"
+              for h, w in shapes))
+    return err
 
 
 def dq_lanes_sweep(dev):
@@ -480,6 +538,12 @@ def _spec_clips():
         "ra_tools": (tool_frames(), dict(qp=27, intra_period=0, gop=4,
                                          isp=True, mrl=True, sbt=True,
                                          dq=True, alf=True, **RA_TOOLS)),
+        "mtt_intra": (motion_frames(4, 64, 96, seed=81),
+                      dict(qp=32, mip=True, mrl=True, isp=True, **MTT)),
+        "mtt_ra_tools": (tool_frames(), dict(qp=27, intra_period=0, gop=4,
+                                             isp=True, mrl=True, sbt=True,
+                                             dq=True, alf=True, **MTT,
+                                             **RA_TOOLS)),
     }
 
 
@@ -608,9 +672,11 @@ def _run_full(dev, frames, cfg, decisions_out=None):
     from vvctpu_torch.pipeline import wave
     r = dict(enc_t={}, dec_t={}, enc_l={}, dec_l={})
     kme.launches = 0
+    kme.trace = []
     kdq.launches = 0
     kdq.trace = []
     wave.batches = 0
+    wave.batch_kinds = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with GpuBusy() as busy_enc:
@@ -621,8 +687,11 @@ def _run_full(dev, frames, cfg, decisions_out=None):
         torch.cuda.synchronize()
         r["t_enc"] = time.time() - t0
     r["dq_path"] = _dq_path(kdq.trace)
-    kdq.trace = None
+    r["me_keys"] = kme.trace
+    kdq.trace = kme.trace = None
     r["batches"] = wave.batches
+    r["batch_kinds"] = dict(wave.batch_kinds)
+    wave.batch_kinds = None
     with GpuBusy() as busy_dec:
         t0 = time.time()
         out, _ = tenc.decode_sequence(data, check_hash=True, device=dev,
@@ -1154,6 +1223,360 @@ def phase_ra_tools(dev):
     return r["launches"], r["dq_launches"], dq_err
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the multi-type tree (BT and TT splits) in I, P and B frames
+# ---------------------------------------------------------------------------
+
+MTT = dict(mtt=True, tt=True)
+# tool indices that the port records at a leaf's top-left 8x8 granule only
+# (the one the entropy coder reads), where the spec model fills the leaf
+_ORIGIN_ONLY = ("mts8", "lfnst8", "cmode8")
+
+
+def _decisions_equal(tag, decs, sdecs, h, w):
+    """Every field of each frame's decisions equals the spec model's, the
+    _ORIGIN_ONLY fields at each leaf's top-left granule."""
+    import dataclasses
+
+    from vvctpu_torch.pipeline import plan as tplan
+    if len(decs) != len(sdecs):
+        raise AssertionError(f"{tag}: {len(decs)} decisions, the spec model "
+                             f"has {len(sdecs)}")
+    for i, (a, b) in enumerate(zip(decs, sdecs)):
+        op, xs, ys = tplan.leaf_plan(a, h, w)[:3]
+        at = (ys[op != 0] // 8, xs[op != 0] // 8)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if not isinstance(x, np.ndarray):
+                continue
+            if f.name in _ORIGIN_ONLY:
+                x, y = x[at], y[at]
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{tag}: frame {i} {f.name} differs "
+                                     "from the spec model's")
+
+
+def _rect_counts(decs, h, w):
+    """Rect leaves per shape over the frames' decisions, as {(w, h):
+    [intra, inter]}, and the TT nodes per direction."""
+    from vvctpu_torch.pipeline import plan as tplan
+    cnt = {sh: [0, 0] for sh in tplan.RECT_SHAPES}
+    for d in decs:
+        op = tplan.leaf_plan(d, h, w)[0]
+        for i, sh in enumerate(tplan.RECT_SHAPES):
+            cnt[sh][0] += int((op == tplan.OP_RECT_INTRA0 + i).sum())
+            cnt[sh][1] += int((op == tplan.OP_RECT_INTER0 + i).sum())
+    tt = {"TT-H": sum(int((d.bt32 == 3).sum()) for d in decs),
+          "TT-V": sum(int((d.bt32 == 4).sum()) for d in decs)}
+    return cnt, tt
+
+
+def _counts_line(cnt, tt):
+    return ("rect leaves (intra, inter) " + ", ".join(
+        f"{w}x{h} {a}, {b}" for (w, h), (a, b) in cnt.items())
+        + "; TT nodes " + ", ".join(f"{k} {v}" for k, v in tt.items()))
+
+
+def _rect_leaf_out(kind, src, buf_y, buf_c, *refs, rows, w, h, dq):
+    """The rect intra leaf class (``kind`` "rect", rows (k, 17)) or phase A
+    of rect inter leaves ("inter", rows (k, 8)) of w x h leaves on a carry
+    of one frame whose recon buffers hold buf_y and the (Cb, Cr) stack
+    buf_c and whose source planes come from src; returns the recon and
+    level planes."""
+    from vvctpu_torch.pipeline import recon, wave
+    dev = src.device
+    hh, ww = src.shape
+    carry = dict(by=buf_y[None].clone(), bc=buf_c.clone(),
+                 ly=torch.zeros((1, hh, ww), dtype=torch.int32, device=dev),
+                 lc=torch.zeros((2, hh // 2, ww // 2), dtype=torch.int32,
+                                device=dev),
+                 sy=src[None], sc=torch.stack([src[::2, ::2],
+                                               src[1::2, 1::2]]))
+    for k in ("b", "l", "s"):
+        carry[k + "cb"], carry[k + "cr"] = carry[k + "c"].split(1)
+    if kind == "rect":
+        wave._rect_batch(carry, torch.as_tensor(rows, device=dev), 32, 347,
+                         w=w, h=h, frame_w=ww, frame_h=hh, log2_ctu=6, bd=8,
+                         encode=True, rdoq=True, dq=dq)
+    else:
+        recon._inter_batch_pass_rect(carry, rows, [r[None] for r in refs],
+                                     w, h, 32, 8, True, rdoq=True,
+                                     lam_rd=347, dq=dq)
+    return carry["by"], carry["ly"], carry["bc"], carry["lc"]
+
+
+def _mtt_worst_cases(dev):
+    """The multi-type tree's passes on the card against the CPU path on
+    worst-case batches: saturated 0/255 and flat planes and references
+    (every candidate ties on a flat one), all 67 modes, negative MVs and
+    MVs past the padded plane; returns the number of cases."""
+    from vvctpu_torch.coding import decide as tdec
+    from vvctpu_torch.coding import me as tme
+    from vvctpu_torch.kernels import intra_pred as kip
+    from vvctpu_torch.pipeline import plan as tplan
+    rng = np.random.default_rng(7)
+    h, w = 64, 128
+    m = kip.MARGIN
+    planes = {"sat": rng.choice([0, 255], (h, w)).astype(np.int32),
+              "noisy": rng.integers(0, 256, (h, w)).astype(np.int32),
+              "flat": np.full((h, w), 77, np.int32)}
+    geoms = tdec._rect_keys(True)
+    n = 0
+
+    def refine_bi(orig, r0, r1, imv0, imv1, **geo):
+        p0 = tme.quarter_phase_planes(r0)
+        p1 = tme.quarter_phase_planes(r1)
+        c0, m0 = tme.refine_pass(orig, r0, imv0, 211, planes=p0, **geo)
+        c1, m1 = tme.refine_pass(orig, r1, imv1, 211, planes=p1, **geo)
+        return (c0, m0, c1, m1) + tme.bi_cost_pass(
+            orig, m0, m1, 211, planes0=p0, planes1=p1, **geo)
+
+    for name, p in planes.items():
+        buf = np.zeros((h + 1 + m, w + 1 + m), np.int32)
+        buf[1:h + 1, 1:w + 1] = p
+        ref = np.pad(p, 80, mode="edge")
+        other = np.pad(planes["noisy"], 80, mode="edge")
+        for g, (bw, bh, sy, sx, oy, ox) in geoms.items():
+            geo = dict(frame_w=w, frame_h=h, sy=sy, sx=sx, oy=oy, ox=ox)
+            n += _card_eq(f"rect_size_pass {name} {g}", dev,
+                          tdec.rect_size_pass, buf, 211, bw=bw, bh=bh, **geo)
+            nby, nbx, *_ = tme.tiling(w, h, bw, bh, sy, sx, oy, ox)
+            imv = rng.integers(-16, 17, (2, nby, nbx, 2)).astype(np.int32)
+            n += _card_eq(f"rect refine + bi {name} {g}", dev, refine_bi,
+                          planes["noisy"], ref, other, imv[0], imv[1], s=bw,
+                          bh=bh, **geo)
+    # the rect leaf classes on saturated recon buffers and references
+    src = planes["noisy"]
+    buf_y = rng.choice([0, 255], (h + 1 + m, w + 1 + m)).astype(np.int32)
+    buf_c = rng.choice([0, 255], (2, h // 2 + 1 + m,
+                                  w // 2 + 1 + m)).astype(np.int32)
+    sat, noisy = planes["sat"], planes["noisy"]
+    refs = [np.pad(sat, 80, mode="edge"), np.pad(sat[::2, ::2], 40,
+                                                 mode="edge"),
+            np.pad(noisy[::2, ::2], 40, mode="edge"),
+            np.pad(noisy, 80, mode="edge"),
+            np.pad(noisy[1::2, 1::2], 40, mode="edge"),
+            np.pad(sat[1::2, 1::2], 40, mode="edge")]
+    for g, (bw, bh, sy, sx, oy, ox) in geoms.items():
+        _, _, _, ys, xs = tme.tiling(w, h, bw, bh, sy, sx, oy, ox)
+        k = ys.shape[0]
+        rows = np.zeros((k, 17), np.int32)
+        rows[:, 1], rows[:, 2] = xs.numpy(), ys.numpy()
+        rows[:, 3] = np.arange(k) % 67
+        mv = (rng.integers(-270, 271, (k, 4)) * 4).astype(np.int32)
+        mv[:3, :2] = [[-16 * 95, 0], [0, 16 * 90], [16 * 200, -16 * 200]]
+        irows = np.concatenate([rows[:, 1:3], mv, rng.choice(
+            [0, 1, 2], (k, 1)), np.zeros((k, 1))], 1).astype(np.int32)
+        for dq in (False, True):
+            n += _card_eq(f"rect leaves {g} dq={dq}", dev,
+                          lambda *a, rows=rows, bw=bw, bh=bh, dq=dq:
+                          _rect_leaf_out("rect", *a, rows=rows, w=bw, h=bh,
+                                         dq=dq), src, buf_y, buf_c)
+            if (bw, bh) in tplan.RECT_SHAPES and not isinstance(g, str):
+                n += _card_eq(f"phase A rect {g} dq={dq}", dev,
+                              lambda *a, rows=irows, bw=bw, bh=bh, dq=dq:
+                              _rect_leaf_out("inter", *a, rows=rows, w=bw,
+                                             h=bh, dq=dq),
+                              src, buf_y, buf_c, *refs)
+    return n
+
+
+def _mtt_decide_times(dev, frames, cfg):
+    """Wall of the decisions of one I, P and B frame of ``frames`` (P2
+    from I0, B1 from I0 and P2, the source planes standing in for the
+    references) with and without MTT and TT, and the card time of the rect
+    passes of the B frame at each geometry; prints them."""
+    import dataclasses
+
+    from vvctpu_torch.coding import decide as tdec
+    from vvctpu_torch.coding import me as tme
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.pipeline import recon
+    from vvctpu_torch.spec import codec as scodec
+    from vvctpu_torch.spec import hls
+    from vvctpu_torch.spec.decide import lambda_satd_fp
+    tag = "[7b]"
+    out = {}
+    for mtt in (False, True):
+        c = dataclasses.replace(cfg, mtt=mtt, tt=mtt)
+        sps = c.make_sps(frames[0][0].shape[1], frames[0][0].shape[0])
+        pad = [scodec.pad_planes(f, sps) for f in frames[:3]]
+        dpb = {i: recon.pad_refs_dev([torch.as_tensor(p, device=dev)
+                                      for p in pad[i]]) for i in (0, 2)}
+        t = {}
+        for name, fn in (
+                ("I", lambda: tdec.decide_frame(
+                    pad[0][0], 32, device=dev,
+                    **tenc._decide_tools(sps, hls.SLICE_I))),
+                ("P", lambda: tdec.decide_frame_p(
+                    pad[2][0], dpb[0][0], 32, device=dev, me_ext=True,
+                    **tenc._decide_tools(sps, hls.SLICE_P))),
+                ("B", lambda: tdec.decide_frame_b(
+                    pad[1][0], dpb[0][0], dpb[2][0], 32, device=dev,
+                    **tenc._decide_tools(sps, hls.SLICE_B)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+        out[mtt] = t
+    print(f"{tag} decide wall of one 1080p frame (one run each, after the "
+          "encode), without / with MTT and TT: " + ", ".join(
+              f"{k} {out[False][k]:.3f} / {out[True][k]:.3f} s"
+              for k in ("I", "P", "B")))
+    h, w = pad[1][0].shape
+    buf = tdec._pad_buf(pad[1][0], dev)
+    orig = torch.as_tensor(np.ascontiguousarray(pad[1][0], np.int32),
+                           device=dev)
+    pl = [tme.quarter_phase_planes(dpb[i][0]) for i in (0, 2)]
+    lam = lambda_satd_fp(32)
+    parts = []
+    for g, (bw, bh, sy, sx, oy, ox) in tdec._rect_keys(True).items():
+        geo = dict(frame_w=w, frame_h=h, sy=sy, sx=sx, oy=oy, ox=ox)
+        nby, nbx, *_ = tme.tiling(w, h, bw, bh, sy, sx, oy, ox)
+        imv = torch.zeros((nby, nbx, 2), dtype=torch.int32, device=dev)
+        ts = cuda_ms(lambda: tdec.rect_size_pass(buf, lam, bw=bw, bh=bh,
+                                                 **geo), 3)
+        tr = cuda_ms(lambda: tme.refine_pass(orig, dpb[0][0], imv, lam,
+                                             s=bw, bh=bh, planes=pl[0],
+                                             **geo), 3)
+        mv = tme.refine_pass(orig, dpb[0][0], imv, lam, s=bw, bh=bh,
+                             planes=pl[0], **geo)[1]
+        tb = cuda_ms(lambda: tme.bi_cost_pass(orig, mv, mv, lam, s=bw, bh=bh,
+                                              planes0=pl[0], planes1=pl[1],
+                                              **geo), 3)
+        name = g if isinstance(g, str) else f"{g[0]}x{g[1]}"
+        parts.append(f"{name} {nby * nbx} blocks {ts:.1f} / {tr:.1f} / "
+                     f"{tb:.1f}")
+    print(f"{tag} rect passes of the B frame per geometry (CUDA events, 3 "
+          "runs each), rect_size_pass / refine_pass per list / bi_cost_pass "
+          "in ms: " + "; ".join(parts))
+
+
+def phase_mtt(dev):
+    """Phase 7: the multi-type tree (BT and TT splits) in I, P and B
+    frames; returns the 1080p path's kernel launches (me_sad, dq_trellis)
+    and the trellis's largest error against its twin at its shapes."""
+    from vvctpu_torch.kernels import me_sad as kme
+    from vvctpu_torch.spec import hls
+    from vvctpu_torch.spec import sequence as tseq
+    counts = []
+    data, decs, sdecs = _held_to_spec("64x96 AI with MTT and TT", dev,
+                                      "mtt_intra")
+    _decisions_equal("[7a] 64x96 AI with MTT and TT", decs, sdecs, 64, 96)
+    counts.append(_rect_counts(decs, 64, 96))
+    print(f"[7a] 64x96 AI, 4 frames, MTT, TT, MIP, MRL, ISP: {len(data)} "
+          "bytes and decisions equal to the spec model; card and spec "
+          f"decoders verified hashes; {_counts_line(*counts[-1])}")
+    kme.trace = []
+    data, decs, sdecs = _held_to_spec("64x256 GOP4 with MTT and TT", dev,
+                                      "mtt_ra_tools")
+    keys, kme.trace = kme.trace, None
+    # one me_sad per P frame and one per list for each B frame, 11 keys
+    plan = tseq.gop_plan(5, 0, 4)
+    want = [11] * sum(1 if e[1] == hls.SLICE_P else 2 for e in plan
+                      if e[1] != hls.SLICE_I)
+    if keys != want:
+        raise AssertionError(f"[7a] me_sad launches (keys) {keys}, expected "
+                             f"{want}")
+    _decisions_equal("[7a] 64x256 GOP4 with MTT and TT", decs, sdecs, 64,
+                     256)
+    counts.append(_rect_counts(decs, 64, 256))
+    print(f"[7a] 64x256 GOP4 QP27, 5 frames, config #4's toolset with MTT "
+          f"and TT: {len(data)} bytes and decisions equal to the spec model "
+          "(mts8, lfnst8, cmode8 at each leaf's top-left granule); card and "
+          f"spec decoders verified hashes; me_sad launches {len(keys)}, all "
+          f"at 11 keys; {_counts_line(*counts[-1])}")
+    print(f"[7a] multi-type tree: card == CPU on {_mtt_worst_cases(dev)} "
+          "worst-case batches (rect_size_pass, rect refine and BI cost at "
+          "the 8 geometries; rect intra leaves and phase A of rect inter "
+          "leaves with and without DQ)")
+
+    n = 3
+    decs = []
+    cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=2, wpp=True,
+                             sbt=True, dq=True, alf=True, **MTT, **RA_TOOLS)
+    frames = synth_frames(n, 1080, 1920, seed=4)
+    r = _run_full(dev, frames, cfg, decisions_out=decs)
+    tag = "[7b]"
+    # me_sad runs once for P2 and once per list for B1, at 11 keys
+    if r["me_keys"] != [11] * 3:
+        raise AssertionError(f"{tag} me_sad launches (keys) {r['me_keys']}, "
+                             "expected three at 11 keys")
+    if not r["dq_launches"]:
+        raise AssertionError(f"{tag} dq_trellis was never launched")
+    counts.append(_rect_counts(decs, 1088, 1920))
+    print(f"{tag} 1080p RA GOP2 QP32 WPP, config #4's toolset with MTT and "
+          f"TT, {n} frames (I0 P2 B1): {sum(r['bits']) / n:.1f} bits/frame "
+          "(new data: the reference engine never ran it); me_sad launches "
+          f"{r['launches']}, all at 11 keys; {_counts_line(*counts[-1])}; "
+          "8x8 granules of P/B frames per tool: " + ", ".join(
+              f"{k} {v}" for k, v in _tool_counts(decs).items()))
+    _report(tag, r, n)
+    print(f"{tag} phase-B batches of the encode per leaf class: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(r["batch_kinds"].items())))
+    for k in ("enc", "dec"):
+        lt = r[f"{k}_l"]
+        print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
+            f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
+    missing = [f"{w}x{h}" for (w, h) in counts[0][0]
+               if not any(sum(c[(w, h)]) for c, _ in counts)]
+    missing += [k for k in ("TT-H", "TT-V")
+                if not any(tt[k] for _, tt in counts)]
+    if missing:
+        raise AssertionError(f"phase 7: never chose {missing}")
+    dq_err = _dq_path_times(dev, r["dq_path"], tag)
+    _mtt_decide_times(dev, frames, cfg)
+    return r["launches"], r["dq_launches"], dq_err
+
+
+def walls(dev):
+    """Encode and decode walls of phase 4's and phase 6b's configurations
+    (1080p RA GOP16, 17 frames; bench config #4 whole, 5 frames) with the
+    vvctpu_torch that comes first on sys.path; prints one line each.  Not
+    run by main: to compare two trees on one card, run this file once per
+    tree, in turns, with that tree's root first on sys.path:
+
+        python3 -c "import sys, runpy, torch; sys.path.insert(0, ROOT);
+            runpy.run_path('chip_smoke.py')['walls'](torch.device('cuda'))"
+    """
+    import vvctpu_torch
+    from vvctpu_torch.spec import sequence as tseq
+    for tag, n, seed, cfg in (
+            ("RA GOP16", 17, 0, tseq.EncoderConfig(
+                qp=32, intra_period=32, gop=16, wpp=True)),
+            ("config #4", 5, 4, tseq.EncoderConfig(
+                qp=32, intra_period=32, gop=4, wpp=True, sbt=True, dq=True,
+                alf=True, **RA_TOOLS))):
+        r = _run_full(dev, synth_frames(n, 1080, 1920, seed=seed), cfg)
+        print(f"[walls] {vvctpu_torch.__file__}: {tag} encode "
+              f"{r['t_enc']:.2f} s, decode {r['t_dec']:.2f} s, "
+              f"{sum(r['bits']) / n:.1f} bits/frame; "
+              + _stages_line("encode", r["enc_t"], r["t_enc"]))
+
+
+def _phase_mtt_side(spec):
+    """phase_mtt in a process of its own, on a CUDA context of its own,
+    with the spec model's results for 7a given as ``spec`` (name ->
+    _spec's result); returns (what it printed, its results, its
+    seconds).  On a failure it writes what it printed to stderr."""
+    import contextlib
+    import io
+    from concurrent.futures import Future
+    for name, res in spec.items():
+        _SPEC[name] = Future()
+        _SPEC[name].set_result(res + (0.0,))
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = phase_mtt(torch.device("cuda"))
+    except BaseException:
+        sys.stderr.write(buf.getvalue())
+        raise
+    return buf.getvalue(), out, time.time() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1166,20 +1589,32 @@ def main() -> int:
         print(f"[time] {tag}: {time.time() - t0:.1f} s")
         return out
 
-    # the spec model's side of phases 2, 5a and 6a is host work: two
+    # the spec model's side of phases 2, 5a, 6a and 7a is host work: two
     # worker processes run it while the card runs the phases before them
-    pool = ProcessPoolExecutor(max_workers=2,
-                               mp_context=multiprocessing.get_context("spawn"))
+    ctx = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=ctx)
+    # phase 7 runs in a process of its own beside phases 5 and 6: each
+    # phase's host is one core and its card mostly idle, and one after
+    # the other they would leave the script no margin within its limit
+    side = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
     try:
         for name in _spec_clips():
             _SPEC[name] = pool.submit(_spec_run, name)
         krow = timed("phase 1 me_sad", phase_kernels)
         drow = timed("phase 1 dq_trellis", phase_dq_kernel)
         timed("phase 2", phase_small)
-        launches = (timed("phase 3", phase_full) + timed("phase 4", phase_ra)
-                    + timed("phase 5", phase_ai))
+        launches = timed("phase 3", phase_full) + timed("phase 4", phase_ra)
+        mtt = side.submit(_phase_mtt_side, {n: _spec(n) for n in
+                                            ("mtt_intra", "mtt_ra_tools")})
+        launches += timed("phase 5", phase_ai)
         me4, dq_launches, dq_err = timed("phase 6", phase_ra_tools)
+        t0 = time.time()
+        text, (me7, dq7, dq_err7), took = mtt.result()
+        print(text, end="")
+        print(f"[time] phase 7: {took:.1f} s, beside phases 5 and 6 (then "
+              f"waited for {time.time() - t0:.1f} s)")
     finally:
+        side.shutdown(wait=True, cancel_futures=True)
         pool.shutdown(wait=True, cancel_futures=True)
     print(f"[time] spec model side in the workers: {_SPEC_T['work']:.1f} s; "
           f"the card's phases waited {_SPEC_T['wait']:.1f} s for it, so "
@@ -1187,16 +1622,17 @@ def main() -> int:
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
-                    launches=launches + me4, equal=krow["max_abs_err"] == 0,
+                    launches=launches + me4 + me7,
+                    equal=krow["max_abs_err"] == 0,
                     max_abs_err=krow["max_abs_err"], ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
                     bound_by=krow["bound_by"], library_ms=None),
                dict(name="dq_trellis", route="cuda",
                     source="vvctpu_torch/csrc/dq_trellis.cu",
                     replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
-                    launches=dq_launches,
-                    equal=max(drow["max_abs_err"], dq_err) == 0,
-                    max_abs_err=max(drow["max_abs_err"], dq_err),
+                    launches=dq_launches + dq7,
+                    equal=max(drow["max_abs_err"], dq_err, dq_err7) == 0,
+                    max_abs_err=max(drow["max_abs_err"], dq_err, dq_err7),
                     ms=drow["ms"],
                     plain_ms=drow["plain_ms"], bound_ms=drow["bound_ms"],
                     bound_by=drow["bound_by"], library_ms=None)]

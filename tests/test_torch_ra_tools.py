@@ -141,8 +141,8 @@ def test_tool_config_equals_spec_model(case):
 
 
 @pytest.mark.parametrize("kw", [dict(mctf=True), dict(subpic_rows=2),
-                                dict(tile_rows=2), dict(mtt=True),
-                                dict(mtt=True, tt=True), dict(lmcs=True),
+                                dict(tile_rows=2), dict(mtt=True, lmcs=True),
+                                dict(lmcs=True),
                                 dict(ibc=True), dict(plt=True),
                                 dict(tskip=True), dict(jccr=True),
                                 dict(tile_cols=2), dict(ctu=128),
@@ -154,18 +154,19 @@ def test_tools_outside_slice_still_raise(kw):
 
 @pytest.mark.parametrize("field,value", [
     ("log2_ctu", 5), ("bit_depth", 12), ("tile_rows", None),
-    ("mtt_enabled", True), ("tt_enabled", True), ("lmcs_enabled", True),
+    ("lmcs_enabled", True),
     ("ibc_enabled", True), ("plt_enabled", True), ("ts_enabled", True),
     ("jccr_enabled", True), ("log2_ctu", 7), ("bit_depth", 10),
     ("tiles", None)])
 def test_stream_outside_slice_still_raises(field, value):
     """The decoder's SPS/PPS check refuses what the slice leaves out and
-    accepts the inter and intra toolsets, SBT, DQ and ALF."""
+    accepts the inter and intra toolsets, SBT, DQ, ALF and the multi-type
+    tree."""
     from vvctpu_torch.spec import hls
     tools = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
                  cclm=True, mmvd=True, dmvr=True, bdof=True, bcw=True,
                  gpm=True, affine=True, amvr=True, smvd=True, ciip=True,
-                 sbt=True, dq=True, alf=True)
+                 sbt=True, dq=True, alf=True, mtt=True, tt=True)
     sps = tseq.EncoderConfig(intra_period=0, gop=4, **tools).make_sps(64, 64)
     tenc._check_sps(sps, hls.PPS())
     pps = hls.PPS()
@@ -177,3 +178,17 @@ def test_stream_outside_slice_still_raises(field, value):
         sps = dataclasses.replace(sps, **{field: value})
     with pytest.raises(ValueError, match="outside"):
         tenc._check_sps(sps, pps)
+
+
+@pytest.mark.parametrize("tools", [
+    dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True, cclm=True),
+    dict(intra_period=0, gop=4, mmvd=True, dmvr=True, bdof=True, bcw=True,
+         gpm=True, affine=True, amvr=True, smvd=True, ciip=True, sbt=True,
+         dq=True)], ids=["intra", "inter"])
+def test_stream_with_mtt_tt_accepted(tools):
+    """The decoder's SPS check accepts the multi-type tree with BT and TT
+    splits beside the intra toolset and beside the inter toolset."""
+    from vvctpu_torch.spec import hls
+    sps = tseq.EncoderConfig(mtt=True, tt=True, **tools).make_sps(64, 64)
+    assert sps.mtt_enabled and sps.tt_enabled
+    tenc._check_sps(sps, hls.PPS())

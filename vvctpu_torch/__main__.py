@@ -1,6 +1,7 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
-the PyTorch engine (all-intra, low-delay P or random access, with VVC's
-intra and inter toolsets, dependent quantization and ALF).
+the PyTorch engine (all-intra, low-delay P or random access, with the
+multi-type tree, VVC's intra and inter toolsets, dependent quantization
+and ALF).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
@@ -10,6 +11,8 @@ intra and inter toolsets, dependent quantization and ALF).
         --ip 32 --gop 4 --wpp --mts --lfnst --cclm --mip --mmvd --bcw \\
         --amvr --smvd --ciip --gpm --affine --dmvr --bdof --sbt --dq --alf \\
         -f 5 -b ra.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq -f 3 -b mtt.bin
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
@@ -41,6 +44,8 @@ _TOOLS = {
     "sbt": "sub-block transform for inter luma residual",
     "dq": "dependent quantization (4-state trellis)",
     "alf": "adaptive loop filter (luma Wiener, CTU flags)",
+    "mtt": "multi-type tree (binary splits at 16/32)",
+    "tt": "ternary splits at 32 nodes (requires --mtt)",
 }
 
 
@@ -128,6 +133,8 @@ def main(argv=None) -> int:
     d.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = ap.parse_args(argv)
+    if args.cmd == "encode" and args.tt and not args.mtt:
+        e.error("--tt requires --mtt")
     return _enc(args) if args.cmd == "encode" else _dec(args)
 
 

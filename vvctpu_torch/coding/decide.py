@@ -6,8 +6,11 @@ Hadamard SATD and the integer cost SATD << 8 + bits * lambda, and keeps
 the first minimum; with MRL or ISP the winner is then refined over
 [itself, reference lines 1 and 2, ISP horizontal and vertical].  Inter
 frames add the refined uni costs, the BCW-weighted bi cost, the affine
-pass, then the CIIP and GPM passes as challengers.  The QT partition and
-the per-block choice are assembled on the host exactly as in the
+pass, then the CIIP and GPM passes as challengers.  With the multi-type
+tree the same passes run on the rectangular grids of the BT shapes and
+the TT stripes (67 modes, uni and equal-weight BI), and the copied
+mtt_assemble_* choose among the QT, BT and TT splits.  The partition
+and the per-block choice are assembled on the host exactly as in the
 reference (int64 costs, first minimum in the reference's kind order).
 """
 from __future__ import annotations
@@ -22,7 +25,8 @@ from ..device import const
 from ..kernels import intra_pred, mc
 from ..kernels import me_sad as kme
 from ..spec.codec import FrameDecisions, isp_parts
-from ..spec.decide import _bl, lambda_satd_fp
+from ..spec.decide import (MODE_BITS, TT_GEOM, _bl, lambda_satd_fp,
+                           mtt_assemble_b, mtt_assemble_i, mtt_assemble_p)
 from ..spec.inter import AFF_DELTAS, AFF_MIN_SIZE, BCW_DEFAULT, mv_bits_q
 from . import me as tme
 
@@ -42,13 +46,17 @@ def _hadamard_abs(x, axes, n: int):
     return x.abs().sum(axes, dtype=torch.int32)
 
 
-def _satd(diff, s: int):
-    """Tiled 8x8 Hadamard SATD of (..., s, s) int32 blocks, per-tile
-    rounding as in spec.decide."""
-    t = s // 8
-    x = diff.reshape(*diff.shape[:-2], t, 8, t, 8)
+def _satd_rect8(diff, w: int, h: int):
+    """Tiled 8x8 Hadamard SATD of (..., h, w) int32 blocks, per-tile
+    rounding as in spec.decide (twin of the reference's _satd_rect8)."""
+    x = diff.reshape(*diff.shape[:-2], h // 8, 8, w // 8, 8)
     per_tile = (_hadamard_abs(x, (-3, -1), 8) + 4) >> 3
     return per_tile.sum((-2, -1), dtype=torch.int32)
+
+
+def _satd(diff, s: int):
+    """_satd_rect8 of (..., s, s) blocks."""
+    return _satd_rect8(diff, s, s)
 
 
 def _satd4_rect(diff, w: int, h: int):
@@ -63,22 +71,6 @@ def _bits(fp, lam: int):
     return (np.asarray(fp, np.int64) * lam).astype(np.int32) >> 8
 
 
-def _grid(nby: int, nbx: int, s: int, dev):
-    """(ys, xs) top-left corners of the raster s-block grid, int32 (B,)."""
-    ys = (torch.arange(nby, dtype=torch.int32, device=dev) * s)[:, None] \
-        .expand(nby, nbx).reshape(-1)
-    xs = (torch.arange(nbx, dtype=torch.int32, device=dev) * s)[None, :] \
-        .expand(nby, nbx).reshape(-1)
-    return ys, xs
-
-
-def _blocks(plane, ys, xs, s: int, off: int = 0):
-    """(B, s, s) blocks of a 2-D plane at (ys + off, xs + off)."""
-    ar = torch.arange(s, device=plane.device)
-    return plane[(ys.long() + off)[:, None, None] + ar[None, :, None],
-                 (xs.long() + off)[:, None, None] + ar[None, None, :]]
-
-
 def size_pass(buf, lam: int, *, s: int, frame_w: int, frame_h: int,
               bd: int = 8, B=None, mip: bool = False, mrl: bool = False,
               isp: bool = False):
@@ -87,17 +79,16 @@ def size_pass(buf, lam: int, *, s: int, frame_w: int, frame_h: int,
     over [itself, MRL 1, MRL 2, ISP-H, ISP-V]; int32 (nby, nbx) tensors.
     buf: margin-padded original luma plane."""
     dev = buf.device
-    nby, nbx = frame_h // s, frame_w // s
+    nby, nbx, _, ys, xs = tme.tiling(frame_w, frame_h, s, device=dev)
     if B is None:
         B = est.decision_bits(2, 32)
     nm = rom.NUM_LUMA_MODE
     nmip = 2 * rom.NUM_MIP_MODES
-    ys, xs = _grid(nby, nbx, s, dev)
     nblk = ys.shape[0]
     geo = dict(is_luma=True, frame_w=frame_w, frame_h=frame_h,
                n_ctu_x=frame_w // 64, bd=bd, in_frame_only=True)
     top, left = intra_pred.build_references(buf, xs, ys, s=s, **geo)
-    blk = _blocks(buf, ys, xs, s, 1)
+    blk = tme.blocks(buf, ys, xs, s, s, 1)
     modes = torch.arange(nm, dtype=torch.int32, device=dev).repeat(nblk)
     pred = intra_pred.predict(top.repeat_interleave(nm, 0),
                               left.repeat_interleave(nm, 0), modes, s=s,
@@ -169,6 +160,100 @@ def size_pass(buf, lam: int, *, s: int, frame_w: int, frame_h: int,
     return tuple(v.reshape(nby, nbx) for v in (cost, best, mrl_out, isp_out))
 
 
+def rect_size_pass(buf, lam: int, *, bw: int, bh: int, frame_w: int,
+                   frame_h: int, bd: int = 8, sy: int | None = None,
+                   sx: int | None = None, oy: int = 0, ox: int = 0,
+                   mfp=None):
+    """Best (cost, mode) per (bw x bh) block over the 67 regular modes
+    (twin of the reference's rect_size_pass; the square-only tools stay
+    out), the blocks tiled at stride (sy, sx) from offset (oy, ox)
+    (default dense).  mfp: the modes' rates in 1/256 bits (default
+    MODE_BITS << 8).  Returns int32 (nby, nbx) tensors (cost, mode).
+    buf: margin-padded original luma plane."""
+    dev = buf.device
+    nby, nbx, _, ys, xs = tme.tiling(frame_w, frame_h, bw, bh, sy, sx, oy,
+                                     ox, dev)
+    nm = rom.NUM_LUMA_MODE
+    nblk = ys.shape[0]
+    if mfp is None:
+        mfp = np.asarray(MODE_BITS, np.int64) << 8
+    top, left = intra_pred.build_references_rect(
+        buf, xs, ys, w=bw, h=bh, is_luma=True, frame_w=frame_w,
+        frame_h=frame_h, n_ctu_x=frame_w // 64, bd=bd, in_frame_only=True)
+    blk = tme.blocks(buf, ys, xs, bw, bh, 1)
+    modes = torch.arange(nm, dtype=torch.int32, device=dev).repeat(nblk)
+    pred = intra_pred.predict_rect(top.repeat_interleave(nm, 0),
+                                   left.repeat_interleave(nm, 0), modes,
+                                   w=bw, h=bh, is_luma=True, bd=bd)
+    satd = _satd_rect8(blk.repeat_interleave(nm, 0) - pred, bw, bh) \
+        .reshape(nblk, nm)
+    del pred
+    costs = (satd << 8) + torch.as_tensor(
+        _bits(np.asarray(mfp, np.int64)[:nm], lam), device=dev)[None]
+    best = torch.argmin(costs, dim=1)
+    cost = torch.gather(costs, 1, best[:, None])[:, 0]
+    return cost.reshape(nby, nbx), best.to(torch.int32).reshape(nby, nbx)
+
+
+_BT_SHAPES = ((16, 8), (8, 16), (32, 16), (16, 32))
+
+
+def _rect_keys(tt: bool) -> dict:
+    """The rect grids, name -> geometry (bw, bh, sy, sx, oy, ox): the 4 BT
+    shapes, dense, and with ``tt`` the 4 TT stripe geometries."""
+    keys = {sh: sh + (None, None, 0, 0) for sh in _BT_SHAPES}
+    if tt:
+        keys.update(TT_GEOM)
+    return keys
+
+
+def _rect_grids_intra(jbuf, lam: int, w: int, h: int, bd: int, tt: bool,
+                      B):
+    """Host dict {(bw, bh) | TT key: (cost int64, mode)} for the 4 BT
+    shapes (and the 4 TT stripe geometries with ``tt``), with the mode
+    rates of the DecisionBits B: the input of mtt_assemble_i."""
+    out = {}
+    for name, (bw, bh, sy, sx, oy, ox) in _rect_keys(tt).items():
+        c, m = rect_size_pass(jbuf, lam, bw=bw, bh=bh, frame_w=w, frame_h=h,
+                              bd=bd, sy=sy, sx=sx, oy=oy, ox=ox,
+                              mfp=B.mode_fp)
+        out[name] = (_np(c).astype(np.int64), _np(m))
+    return out
+
+
+def _rect_grids_inter(jbuf, jorig, refs, memaps, lam: int, w: int, h: int,
+                      bd: int, tt: bool, B, planes):
+    """Host dict {(bw, bh) | TT key: (cost, mode, kind, mv0, mv1)} for the
+    rect grids of a P frame (one reference: kind 0 intra / 1 uni) or a B
+    frame (kind 0 intra / 1 L0 / 2 L1 / 3 BI at equal weight), the first
+    minimum in that order: the input of mtt_assemble_p / _b (twin of the
+    reference's _rect_grids_inter).  refs, memaps, planes: per list, the
+    padded reference, me_pass's maps and the quarter-phase planes."""
+    out = {}
+    for name, (bw, bh, sy, sx, oy, ox) in _rect_keys(tt).items():
+        geo = dict(frame_w=w, frame_h=h, bd=bd, sy=sy, sx=sx, oy=oy, ox=ox)
+        ic, im = rect_size_pass(jbuf, lam, bw=bw, bh=bh, mfp=B.mode_fp,
+                                **geo)
+        costs, umv = [ic], []
+        for lst, ref in enumerate(refs):
+            rc, rmv = tme.refine_pass(jorig, ref, memaps[lst][name][1], lam,
+                                      s=bw, bh=bh, planes=planes[lst], **geo)
+            costs.append(rc)
+            umv.append(rmv)
+        if len(refs) == 2:
+            bc, _ = tme.bi_cost_pass(jorig, umv[0], umv[1], lam, s=bw, bh=bh,
+                                     planes0=planes[0], planes1=planes[1],
+                                     **geo)
+            costs.append(bc)
+        stk = torch.stack(costs)
+        kind = torch.argmin(stk, dim=0)       # first minimum in kind order
+        cost = torch.gather(stk, 0, kind[None])[0]
+        mv1 = umv[1] if len(refs) == 2 else torch.zeros_like(umv[0])
+        out[name] = (_np(cost).astype(np.int64), _np(im),
+                     _np(kind).astype(np.int32), _np(umv[0]), _np(mv1))
+    return out
+
+
 def _pad_buf(orig_y, device):
     h, w = orig_y.shape
     buf = np.zeros((h + 1 + intra_pred.MARGIN, w + 1 + intra_pred.MARGIN),
@@ -179,9 +264,12 @@ def _pad_buf(orig_y, device):
 
 def decide_frame_device(orig_y: np.ndarray, qp: int, bd: int = 8, *,
                         device, mip: bool = False, mrl: bool = False,
-                        isp: bool = False):
+                        isp: bool = False, mtt: bool = False,
+                        tt: bool = False):
     """Launch the I-frame decision passes; returns a handle for
-    decide_frame_assemble (results still on the device)."""
+    decide_frame_assemble (the square sizes' results still on the device;
+    with ``mtt`` the rect grids, with ``tt`` the TT stripes too, on the
+    host)."""
     h, w = orig_y.shape
     lam = lambda_satd_fp(qp)
     B = est.decision_bits(2, qp)
@@ -189,7 +277,8 @@ def decide_frame_device(orig_y: np.ndarray, qp: int, bd: int = 8, *,
     res = {s: size_pass(jbuf, lam, s=s, frame_w=w, frame_h=h, bd=bd, B=B,
                         mip=mip, mrl=mrl, isp=isp)
            for s in (8, 16, 32)}
-    return dict(res=res, h=h, w=w, lam=lam, B=B)
+    rects = _rect_grids_intra(jbuf, lam, w, h, bd, tt, B) if mtt else None
+    return dict(res=res, rects=rects, h=h, w=w, lam=lam, B=B)
 
 
 def _split_and_fill(dec, B, lam, cost8, cost16, cost32):
@@ -231,6 +320,10 @@ def decide_frame_assemble(hd) -> FrameDecisions:
     res, h, w, lam, B = hd["res"], hd["h"], hd["w"], hd["lam"], hd["B"]
     got = {s: [t.cpu().numpy() for t in res[s]] for s in res}
     dec = FrameDecisions.empty(h, w)
+    if hd["rects"] is not None:
+        sizes = {s: (got[s][0].astype(np.int64), *got[s][1:]) for s in got}
+        mtt_assemble_i(dec, sizes, hd["rects"], lam, B=B)
+        return dec
     use16, use8 = _split_and_fill(dec, B, lam,
                                   *(got[s][0].astype(np.int64)
                                     for s in (8, 16, 32)))
@@ -243,11 +336,12 @@ def decide_frame_assemble(hd) -> FrameDecisions:
 
 
 def decide_frame(orig_y: np.ndarray, qp: int, bd: int = 8, *, device,
-                 mip: bool = False, mrl: bool = False,
-                 isp: bool = False) -> FrameDecisions:
+                 mip: bool = False, mrl: bool = False, isp: bool = False,
+                 mtt: bool = False, tt: bool = False) -> FrameDecisions:
     """Decisions for a padded luma plane (host assembly)."""
     return decide_frame_assemble(decide_frame_device(
-        orig_y, qp, bd, device=device, mip=mip, mrl=mrl, isp=isp))
+        orig_y, qp, bd, device=device, mip=mip, mrl=mrl, isp=isp, mtt=mtt,
+        tt=tt))
 
 
 def ciip_pass(buf, refp0, refp1, kind, mv0, mv1, bwidx, *, s: int,
@@ -262,9 +356,8 @@ def ciip_pass(buf, refp0, refp1, kind, mv0, mv1, bwidx, *, s: int,
     reference planes; kind, bwidx (nby, nbx); mv0/mv1 (nby, nbx, 2)
     1/16 pel.  Returns (sad_mc, sad_blend), int32 (nby, nbx)."""
     dev = buf.device
-    nby, nbx = frame_h // s, frame_w // s
+    nby, nbx, _, ys, xs = tme.tiling(frame_w, frame_h, s, device=dev)
     mx = (1 << bd) - 1
-    ys, xs = _grid(nby, nbx, s, dev)
     k = kind.reshape(-1)[:, None, None].to(torch.int32)
     m0 = mv0.reshape(-1, 2).to(torch.int32)
     m1 = mv1.reshape(-1, 2).to(torch.int32)
@@ -284,7 +377,7 @@ def ciip_pass(buf, refp0, refp1, kind, mv0, mv1, bwidx, *, s: int,
                             torch.full_like(xs, rom.PLANAR_IDX), s=s,
                             is_luma=True, bd=bd)
     blend = ((p + pl + 1) >> 1).clamp(0, mx)
-    ob = _blocks(buf, ys, xs, s, 1)
+    ob = tme.blocks(buf, ys, xs, s, s, 1)
     inter = k[:, 0, 0] > 0
     sadm = (ob - p).abs().sum((1, 2), dtype=torch.int32)
     sadb = (ob - blend).abs().sum((1, 2), dtype=torch.int32)
@@ -299,15 +392,14 @@ def gpm_pass(orig, refp0, refp1, mv0, mv1, *, s: int, frame_w: int,
     rom.gpm_masks_all(s), the first SAD minimum.  Returns (sad, idx),
     int32 (nby, nbx)."""
     dev = orig.device
-    nby, nbx = frame_h // s, frame_w // s
-    ys, xs = _grid(nby, nbx, s, dev)
+    nby, nbx, _, ys, xs = tme.tiling(frame_w, frame_h, s, device=dev)
     masks = const(mc.gpm_masks(s), dev)[None, 1:]      # (1, 64, s, s)
     m0 = mv0.reshape(-1, 2).to(torch.int32)
     m1 = mv1.reshape(-1, 2).to(torch.int32)
     p0 = mc.mc_luma_block(refp0, xs, ys, s, m0[:, 0], m0[:, 1], bd)[:, None]
     p1 = mc.mc_luma_block(refp1, xs, ys, s, m1[:, 0], m1[:, 1], bd)[:, None]
     pb = ((masks * p0 + (8 - masks) * p1 + 4) >> 3).clamp(0, (1 << bd) - 1)
-    ob = _blocks(orig.to(torch.int32), ys, xs, s)[:, None]
+    ob = tme.blocks(orig.to(torch.int32), ys, xs, s, s)[:, None]
     sads = (ob - pb).abs().sum((2, 3), dtype=torch.int32)
     k = torch.argmin(sads, dim=1)
     sad = torch.gather(sads, 1, k[:, None])[:, 0]
@@ -328,10 +420,9 @@ def affine_pass(orig, refp, base_mv, lam: int, aff_fp: int, *, s: int,
     bits + dmv bits) + the affine flag's rate; the first minimum wins.
     Returns (cost, dmv), int32 (nby, nbx) and (nby, nbx, 2)."""
     dev = orig.device
-    nby, nbx = frame_h // s, frame_w // s
-    ys, xs = _grid(nby, nbx, s, dev)
+    nby, nbx, _, ys, xs = tme.tiling(frame_w, frame_h, s, device=dev)
     b = base_mv.reshape(-1, 2).to(torch.int32)
-    ob = _blocks(orig.to(torch.int32), ys, xs, s)
+    ob = tme.blocks(orig.to(torch.int32), ys, xs, s, s)
     lam = int(lam)
     bbits = (2 + 2 * kme._bitlen(b[:, 0] >> 2)
              + 2 * kme._bitlen(b[:, 1] >> 2))
@@ -367,10 +458,13 @@ def _np(t):
 def decide_frame_p(orig_y: np.ndarray, ref_y, qp: int, bd: int = 8, *,
                    device, me_ext: bool = False, mip: bool = False,
                    mrl: bool = False, isp: bool = False, ciip: bool = False,
-                   affine: bool = False) -> FrameDecisions:
+                   affine: bool = False, mtt: bool = False,
+                   tt: bool = False) -> FrameDecisions:
     """P-frame decisions (twin of vvctpu.coding.decide.decide_frame_p):
     per block size the first minimum over [intra, uni, affine], then the
-    CIIP refinement of uni blocks.  ref_y is the REF_MARGIN edge-padded
+    CIIP refinement of uni blocks; with ``mtt`` the BT grids (and with
+    ``tt`` the TT stripes, which put me_sad at 11 keys) and the
+    multi-type tree's assembly.  ref_y is the REF_MARGIN edge-padded
     reference luma plane on the device (the DPB entry); me_ext widens the
     integer search to +-ME_EXT (the reference is more than one frame
     away); mip, mrl, isp, ciip, affine: the SPS tools."""
@@ -382,7 +476,7 @@ def decide_frame_p(orig_y: np.ndarray, ref_y, qp: int, bd: int = 8, *,
     refp80 = ref_y
     with record_function("me"):
         memaps = tme.me_pass(jorig, refp80, lam, frame_w=w, frame_h=h,
-                             ext=me_ext)
+                             tt=tt and mtt, ext=me_ext)
     planes = tme.quarter_phase_planes(refp80, bd)
     geo = dict(frame_w=w, frame_h=h, bd=bd)
 
@@ -419,6 +513,11 @@ def decide_frame_p(orig_y: np.ndarray, ref_y, qp: int, bd: int = 8, *,
                    _np(iisp), k3 == 2, admv)
 
     dec = FrameDecisions.empty(h, w)
+    if mtt:
+        rects = _rect_grids_inter(jbuf, jorig, [refp80], [memaps], lam, w, h,
+                                  bd, tt, B, [planes])
+        mtt_assemble_p(dec, data, rects, lam, ciip, affine, B=B)
+        return dec
     use16, use8 = _split_and_fill(dec, B, lam,
                                   *(data[s][0] for s in (8, 16, 32)))
 
@@ -447,13 +546,15 @@ def decide_frame_b(orig_y: np.ndarray, ref0_y, ref1_y, qp: int,
                    bd: int = 8, *, device, me_ext: bool = False,
                    mip: bool = False, mrl: bool = False, isp: bool = False,
                    bcw: bool = False, ciip: bool = False, gpm: bool = False,
-                   affine: bool = False) -> FrameDecisions:
+                   affine: bool = False, mtt: bool = False,
+                   tt: bool = False) -> FrameDecisions:
     """B-frame decisions (twin of vvctpu.coding.decide.decide_frame_b):
     per block size the first minimum over [intra, L0, L1, BI, affine L0,
     affine L1] (a tie keeps the earlier kind), then the CIIP refinement of
-    merge-able blocks and the GPM challenge.  ref0_y / ref1_y are the
-    REF_MARGIN edge-padded reference luma planes on the device; the tool
-    flags are the SPS's."""
+    merge-able blocks and the GPM challenge; with ``mtt`` (and ``tt``)
+    the rect grids and the multi-type tree's assembly, as in
+    decide_frame_p.  ref0_y / ref1_y are the REF_MARGIN edge-padded
+    reference luma planes on the device; the tool flags are the SPS's."""
     h, w = orig_y.shape
     lam = lambda_satd_fp(qp)
     B = est.decision_bits(0, qp)
@@ -462,7 +563,7 @@ def decide_frame_b(orig_y: np.ndarray, ref0_y, ref1_y, qp: int,
     refs = (ref0_y, ref1_y)
     with record_function("me"):
         memaps = [tme.me_pass(jorig, r, lam, frame_w=w, frame_h=h,
-                              ext=me_ext) for r in refs]
+                              tt=tt and mtt, ext=me_ext) for r in refs]
     planes = [tme.quarter_phase_planes(r, bd) for r in refs]
     geo = dict(frame_w=w, frame_h=h, bd=bd)
 
@@ -529,6 +630,11 @@ def decide_frame_b(orig_y: np.ndarray, ref0_y, ref1_y, qp: int,
                    bwidx, cflag, _np(iisp), gval, adm)
 
     dec = FrameDecisions.empty(h, w)
+    if mtt:
+        rects = _rect_grids_inter(jbuf, jorig, refs, memaps, lam, w, h, bd,
+                                  tt, B, planes)
+        mtt_assemble_b(dec, data, rects, lam, ciip, affine, bcw, gpm, B=B)
+        return dec
     use16, use8 = _split_and_fill(dec, B, lam,
                                   *(data[s][0] for s in (8, 16, 32)))
 

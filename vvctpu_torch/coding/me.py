@@ -4,7 +4,8 @@ The dense +-ME_RANGE search runs in the ``me_sad`` kernel
 (kernels/me_sad.py); for references more than one frame away the
 +-ME_EXT coarse-to-fine stage widens it for the square sizes.  The
 half/quarter-pel refinement and the bi-prediction cost read candidate
-predictions from the 16 quarter-pel phase planes of the reference.
+predictions from the 16 quarter-pel phase planes of the reference, for
+square blocks and for the rectangular tilings of the multi-type tree.
 """
 from __future__ import annotations
 
@@ -115,17 +116,11 @@ def _fine_search(orig32, refp80, cdx, cdy, lam: int, *, s: int):
     (s + 4, s + 4) reference window per block; the 25 candidates are
     slices of it in (ddy, ddx) row-major order, strict-less.  Returns
     (cost (nby, nbx), mv (nby, nbx, 2) [dx, dy]) in integer pels."""
-    dev = orig32.device
     nby, nbx = cdx.shape
-    ys = (torch.arange(nby, device=dev, dtype=torch.int32) * s)[:, None] \
-        .expand(nby, nbx).reshape(-1)
-    xs = (torch.arange(nbx, device=dev, dtype=torch.int32) * s)[None, :] \
-        .expand(nby, nbx).reshape(-1)
+    *_, ys, xs = tiling(nbx * s, nby * s, s, device=orig32.device)
     bx = (cdx * 4).reshape(-1)
     by = (cdy * 4).reshape(-1)
-    ar = torch.arange(s, device=dev)
-    blk = orig32[ys.long()[:, None, None] + ar[None, :, None],
-                 xs.long()[:, None, None] + ar[None, None, :]]
+    blk = blocks(orig32, ys, xs, s, s)
     win = _windows(refp80, ys + REF_MARGIN + by - 2, xs + REF_MARGIN + bx - 2,
                    s + 4, s + 4).to(torch.int32)
     cost = torch.full_like(bx, I32MAX)
@@ -176,26 +171,54 @@ def quarter_phase_planes(refp_margin, bd: int = 8):
     return torch.stack(planes)
 
 
+def tiling(frame_w: int, frame_h: int, s: int, bh: int | None = None,
+           sy: int | None = None, sx: int | None = None, oy: int = 0,
+           ox: int = 0, device=None):
+    """Blocks s wide and bh high (default square) tiled at stride (sy, sx)
+    from offset (oy, ox) (default dense; the TT stripes take the TT_GEOM
+    strides).  Returns (nby, nbx, hh, ys, xs) with the (B,) int32 corners
+    in raster order."""
+    hh = s if bh is None else bh
+    sy = hh if sy is None else sy
+    sx = s if sx is None else sx
+    nby = (frame_h - oy - hh) // sy + 1
+    nbx = (frame_w - ox - s) // sx + 1
+    ys = (torch.arange(nby, device=device, dtype=torch.int32) * sy + oy)[
+        :, None].expand(nby, nbx).reshape(-1)
+    xs = (torch.arange(nbx, device=device, dtype=torch.int32) * sx + ox)[
+        None, :].expand(nby, nbx).reshape(-1)
+    return nby, nbx, hh, ys, xs
+
+
+def blocks(plane, ys, xs, w: int, h: int, off: int = 0):
+    """(B, h, w) blocks of a 2-D plane at (ys + off, xs + off)."""
+    dev = plane.device
+    return plane[(ys.long() + off)[:, None, None]
+                 + torch.arange(h, device=dev)[None, :, None],
+                 (xs.long() + off)[:, None, None]
+                 + torch.arange(w, device=dev)[None, None, :]]
+
+
 def refine_pass(orig, refp_margin, int_mv, lam, *, s: int, frame_w: int,
-                frame_h: int, bd: int = 8, planes=None):
-    """Half- then quarter-pel refinement of square s-blocks (twin of
-    vvctpu.coding.me.refine_pass with the default dense tiling).
+                frame_h: int, bd: int = 8, bh: int | None = None,
+                sy: int | None = None, sx: int | None = None, oy: int = 0,
+                ox: int = 0, planes=None):
+    """Half- then quarter-pel refinement of s-wide, bh-high blocks tiled
+    as ``tiling`` tiles them (twin of vvctpu.coding.me.refine_pass;
+    default square and dense).
 
     int_mv: (nby, nbx, 2) integer MVs.  Returns (cost int32 (nby, nbx),
     mv int32 (nby, nbx, 2) in 1/16 pel)."""
     dev = orig.device
-    nby, nbx = frame_h // s, frame_w // s
+    nby, nbx, hh, ys, xs = tiling(frame_w, frame_h, s, bh, sy, sx, oy, ox,
+                                  dev)
     if planes is None:
         planes = quarter_phase_planes(refp_margin, bd)
     _, hp, wp = planes.shape
     flat = planes.reshape(-1)
-    ys = (torch.arange(nby, device=dev, dtype=torch.int32) * s)[:, None] \
-        .expand(nby, nbx).reshape(-1)
-    xs = (torch.arange(nbx, device=dev, dtype=torch.int32) * s)[None, :] \
-        .expand(nby, nbx).reshape(-1)
-    ar = torch.arange(s, device=dev, dtype=torch.int64)
-    blk = orig.to(torch.int32)[(ys.long()[:, None, None] + ar[None, :, None]),
-                               (xs.long()[:, None, None] + ar[None, None, :])]
+    ar_h = torch.arange(hh, device=dev, dtype=torch.int64)
+    ar_w = torch.arange(s, device=dev, dtype=torch.int64)
+    blk = blocks(orig.to(torch.int32), ys, xs, s, hh)
     best = (int_mv.reshape(-1, 2) << MV_FRAC_BITS).to(torch.int32)
 
     def pred(mvx, mvy, fyi, fxi):
@@ -208,8 +231,8 @@ def refine_pass(orig, refp_margin, int_mv, lam, *, s: int, frame_w: int,
         y0 = (ys + (mvy >> MV_FRAC_BITS) + REF_MARGIN + qy).long()
         x0 = (xs + (mvx >> MV_FRAC_BITS) + REF_MARGIN + qx).long()
         pidx = ((ry >> 2) * 4 + (rx >> 2)).long()
-        iy = (y0[:, None] + ar[None]) % hp
-        ix = (x0[:, None] + ar[None]) % wp
+        iy = (y0[:, None] + ar_h[None]) % hp
+        ix = (x0[:, None] + ar_w[None]) % wp
         idx = (pidx[:, None, None] * hp + iy[:, :, None]) * wp \
             + ix[:, None, :]
         return flat[idx]
@@ -241,41 +264,39 @@ def refine_pass(orig, refp_margin, int_mv, lam, *, s: int, frame_w: int,
     return cost.reshape(nby, nbx), best.reshape(nby, nbx, 2)
 
 
-def _phase_block(planes, xs, ys, mv, s: int):
-    """(B, s, s) prediction of each block at its quarter-pel MV: one slice
-    of the matching phase plane (per pixel equal to mc_luma_block), placed
-    as the reference's dynamic_slice places it."""
+def _phase_block(planes, xs, ys, mv, s: int, hh: int):
+    """(B, hh, s) prediction of each block at its quarter-pel MV: one
+    slice of the matching phase plane (per pixel equal to mc_luma_block),
+    placed as the reference's dynamic_slice places it."""
     pidx = ((mv[:, 1] & 15) >> 2) * 4 + ((mv[:, 0] & 15) >> 2)
     return _windows(planes, ys + (mv[:, 1] >> MV_FRAC_BITS) + REF_MARGIN,
-                    xs + (mv[:, 0] >> MV_FRAC_BITS) + REF_MARGIN, s, s,
+                    xs + (mv[:, 0] >> MV_FRAC_BITS) + REF_MARGIN, hh, s,
                     pidx)
 
 
 def bi_cost_pass(orig, mv0, mv1, lam, *, s: int, frame_w: int,
                  frame_h: int, bd: int = 8, planes0, planes1,
-                 bcw: bool = False, bcw_fp=None):
-    """BI cost per square s-block (twin of vvctpu.coding.me.bi_cost_pass
-    with the default dense tiling): SAD of the weighted average of the
-    two refined uni predictions, plus both quarter-pel MV rates.  With
-    ``bcw`` each of the three {3,4,5}/8 weights is costed with its
-    bcw_idx rate ``bcw_fp[i]`` (1/256 bits) and the first minimum wins.
+                 bcw: bool = False, bcw_fp=None, bh: int | None = None,
+                 sy: int | None = None, sx: int | None = None, oy: int = 0,
+                 ox: int = 0):
+    """BI cost per s-wide, bh-high block tiled as ``tiling`` tiles them
+    (twin of vvctpu.coding.me.bi_cost_pass; default square and dense):
+    SAD of the weighted average of the two refined uni predictions, plus
+    both quarter-pel MV rates.  With ``bcw`` each of the three {3,4,5}/8
+    weights is costed with its bcw_idx rate ``bcw_fp[i]`` (1/256 bits)
+    and the first minimum wins.
 
     mv0, mv1: (nby, nbx, 2) refined MVs in 1/16 pel; planes0/1: the
     quarter_phase_planes of the two references.  Returns (cost, widx),
     both (nby, nbx) int32; without ``bcw`` widx is BCW_DEFAULT."""
     dev = orig.device
-    nby, nbx = frame_h // s, frame_w // s
-    ys = (torch.arange(nby, device=dev, dtype=torch.int32) * s)[:, None] \
-        .expand(nby, nbx).reshape(-1)
-    xs = (torch.arange(nbx, device=dev, dtype=torch.int32) * s)[None, :] \
-        .expand(nby, nbx).reshape(-1)
-    ar = torch.arange(s, device=dev)
-    blk = orig.to(torch.int32)[ys.long()[:, None, None] + ar[None, :, None],
-                               xs.long()[:, None, None] + ar[None, None, :]]
+    nby, nbx, hh, ys, xs = tiling(frame_w, frame_h, s, bh, sy, sx, oy, ox,
+                                  dev)
+    blk = blocks(orig.to(torch.int32), ys, xs, s, hh)
     m0 = mv0.reshape(-1, 2).to(torch.int32)
     m1 = mv1.reshape(-1, 2).to(torch.int32)
-    p0 = _phase_block(planes0, xs, ys, m0, s)
-    p1 = _phase_block(planes1, xs, ys, m1, s)
+    p0 = _phase_block(planes0, xs, ys, m0, s, hh)
+    p1 = _phase_block(planes1, xs, ys, m1, s, hh)
     bits = (_mv_bits_q(m0[:, 0] >> 2, m0[:, 1] >> 2)
             + _mv_bits_q(m1[:, 0] >> 2, m1[:, 1] >> 2))
     lam = int(lam)

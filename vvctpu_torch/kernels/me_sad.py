@@ -54,6 +54,9 @@ SPLIT = 2
 
 # kernel launches since the count was last set to 0
 launches = 0
+# None, or a list to which each launch appends its number of keys (7, or
+# 11 with the TT stripes)
+trace = None
 
 _LIB = None
 
@@ -125,6 +128,8 @@ def me_sad(orig, refp, lam: int, *, tt: bool = False):
     if err != 0:
         raise RuntimeError(f"me_sad launch failed: cudaError {err}")
     launches += 1
+    if trace is not None:
+        trace.append(len(keys))
     res, o = [], 0
     for nby, nbx in grids:
         blk = out[:, o:o + nby * nbx].reshape(3, nby, nbx)

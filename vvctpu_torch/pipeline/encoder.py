@@ -2,14 +2,15 @@
 
 Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
 P and random access (hierarchical B, any ``gop`` and ``intra_period``),
-one tile, CTU 64, the default toolset plus VVC's intra toolset (MTS,
-LFNST, ISP, MIP, MRL, CCLM) in every slice type and its inter toolset
-(BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR, SMVD, SBT;
-DMVR and BDOF in BI-symmetric pictures only), dependent quantization,
-and ALF with CC-ALF (parameters derived on the host, filters on the
-device).  All-intra frames are reconstructed in groups of up to eight
-per frame-batched wave; one temporal layer's B frames are decided frame
-by frame and reconstructed in one frame-batched wave.  The bitstreams are byte-identical to the
+one tile, CTU 64, the default toolset plus the multi-type tree (BT and
+TT splits) and VVC's intra toolset (MTS, LFNST, ISP, MIP, MRL, CCLM) in
+every slice type and its inter toolset (BCW, CIIP, GPM, affine with
+PROF, DMVR, BDOF, MMVD, AMVR, SMVD, SBT; DMVR and BDOF in BI-symmetric
+pictures only), dependent quantization, and ALF with CC-ALF (parameters
+derived on the host, filters on the device).  All-intra frames are
+reconstructed in groups of up to eight per frame-batched wave; one
+temporal layer's B frames are decided frame by frame and reconstructed
+in one frame-batched wave.  The bitstreams are byte-identical to the
 reference engine's and to the spec model's.  Anything outside the slice
 raises.
 """
@@ -36,8 +37,8 @@ from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
 # EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("tskip", "jccr", "mtt", "tt", "ibc", "plt", "lmcs", "mctf")
-_SPS_OFF = ("ts", "jccr", "mtt", "tt", "ibc", "plt", "lmcs")
+_OFF_TOOLS = ("tskip", "jccr", "ibc", "plt", "lmcs", "mctf")
+_SPS_OFF = ("ts", "jccr", "ibc", "plt", "lmcs")
 # frames per frame-batched wave
 _GROUP = 8
 
@@ -57,8 +58,8 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
         raise ValueError("outside the PyTorch port's slice (one tile, CTU "
-                         "64, 8-bit; no MTT, IBC, palette, TS, JCCR, LMCS "
-                         "or MCTF): " + ", ".join(bad))
+                         "64, 8-bit; no IBC, palette, TS, JCCR, LMCS or "
+                         "MCTF): " + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -85,7 +86,8 @@ def _wave_tools(sps: hls.SPS, sym: bool) -> dict:
 
 def _decide_tools(sps: hls.SPS, stype) -> dict:
     """The decision passes' tool flags of a slice type from the SPS."""
-    kw = dict(mip=sps.mip_enabled, mrl=sps.mrl_enabled, isp=sps.isp_enabled)
+    kw = dict(mip=sps.mip_enabled, mrl=sps.mrl_enabled, isp=sps.isp_enabled,
+              mtt=sps.mtt_enabled, tt=sps.tt_enabled)
     if stype != hls.SLICE_I:
         kw.update(ciip=sps.ciip_enabled, affine=sps.affine_enabled)
     if stype == hls.SLICE_B:
@@ -95,7 +97,8 @@ def _decide_tools(sps: hls.SPS, stype) -> dict:
 
 def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device):
     """frame_wave_batch input of one frame: slot tables, the planes on the
-    device and, for inter frames, the phase-A rows and the padded device
+    device and, for inter frames, the phase-A rows (per square size and
+    per rect shape of the multi-type tree) and the padded device
     reference planes (three per list)."""
     def up(p):
         return torch.as_tensor(np.ascontiguousarray(p, np.int32),

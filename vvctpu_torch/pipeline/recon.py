@@ -4,7 +4,8 @@ Host-side slot tables (copied), the shared residual/recon chain of one
 component for a batch of blocks, the phase-A pass that reconstructs every
 inter leaf of one size at once (uni- and bi-prediction with BCW weights,
 GPM blends, DMVR, BDOF and affine with PROF, the SBT choice, dependent
-quantization), and the edge padding of the decoded picture buffer.
+quantization) and every rectangular inter leaf of one shape, and the
+edge padding of the decoded picture buffer.
 Device planes carry a leading frame axis (F, h, w) and every block its
 frame index, so one pass serves F mutually independent frames.
 """
@@ -211,6 +212,56 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
         _scatter(carry["ly"], lvy, f, x, y, s, s, 0)
         _scatter(carry["lcb"], lvcb, f, x // 2, y // 2, cs, cs, 0)
         _scatter(carry["lcr"], lvcr, f, x // 2, y // 2, cs, cs, 0)
+
+
+def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
+                           bd: int, encode: bool, rdoq: bool = False,
+                           lam_rd: int = 0, dq: bool = False):
+    """Phase A for rectangular (BT and TT) inter leaves of one shape, w
+    wide and h high, of every frame at once (twin of the reference's
+    _inter_batch_pass_rect): translational MC, L0, L1 or the rounded
+    equal-weight BI average, then the rect transform in each component,
+    with RDOQ or, with ``dq``, dependent quantization.
+
+    ib_slots: (B, 8) int32 numpy rows [x, y, mv0x, mv0y, mv1x, mv1y, dir,
+    frame index] of make_slots_split's rect arrays, whose padded rows
+    (x = y = 2^20) are dropped here on the host; carry and refs as in
+    _inter_batch_pass."""
+    rows = ib_slots[ib_slots[:, 0] < (1 << 20)]
+    if rows.shape[0] == 0:
+        return
+    dev = carry["by"].device
+    slots = torch.as_tensor(np.ascontiguousarray(rows), device=dev)
+    cw, ch = w // 2, h // 2
+    x, y, f = slots[:, 0], slots[:, 1], slots[:, 7]
+    m0x, m0y, m1x, m1y = (slots[:, c] for c in (2, 3, 4, 5))
+    d = slots[:, 6, None, None]
+    mx = (1 << bd) - 1
+    any_l1 = bool((rows[:, 6] != 0).any())
+
+    def pred(ref0, ref1, px, py, pw, ph, luma):
+        fn = mc.mc_luma_block if luma else mc.mc_chroma_block
+        p0 = fn(ref0, px, py, pw, m0x, m0y, bd, h=ph, f=f)
+        if not any_l1:
+            return p0
+        p1 = fn(ref1, px, py, pw, m1x, m1y, bd, h=ph, f=f)
+        avg = ((p0 + p1 + 1) >> 1).clamp(max=mx)
+        return torch.where(d == 0, p0, torch.where(d == 1, p1, avg))
+
+    ry, lvy = _component(carry["sy"], pred(refs[0], refs[3], x, y, w, h,
+                                           True),
+                         f, x, y, w, h, qp, bd, encode, rdoq, lam_rd, dq)
+    _scatter(carry["by"], ry, f, x, y, w, h, 1)
+    if encode:
+        _scatter(carry["ly"], lvy, f, x, y, w, h, 0)
+    for c, r0, r1 in (("cb", refs[1], refs[4]), ("cr", refs[2], refs[5])):
+        rc, lvc = _component(carry["s" + c], pred(r0, r1, x // 2, y // 2, cw,
+                                                  ch, False),
+                             f, x // 2, y // 2, cw, ch, qp, bd, encode, rdoq,
+                             lam_rd, dq)
+        _scatter(carry["b" + c], rc, f, x // 2, y // 2, cw, ch, 1)
+        if encode:
+            _scatter(carry["l" + c], lvc, f, x // 2, y // 2, cw, ch, 0)
 
 
 def _refine_bi(pred_y, pred_cb, pred_cr, slots, ri, refs, s: int, sub: int,

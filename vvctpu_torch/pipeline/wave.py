@@ -6,8 +6,9 @@ availability).  The device then runs one batch per (level, leaf class)
 and scatters the block results into the recon buffers.  Phase A (every
 inter leaf, which depends on nothing in the current frame) runs first.
 One engine: an eager loop over the schedule, with the intra toolset
-(MIP, MRL, ISP, MTS, LFNST, CCLM) and CIIP on the phase-B leaves,
-VVC's inter toolset (BCW, GPM, DMVR, BDOF, affine, SBT) in phase A, and
+(MIP, MRL, ISP, MTS, LFNST, CCLM), CIIP and the rectangular leaves of the
+multi-type tree on the phase-B leaves, VVC's inter toolset (BCW, GPM,
+DMVR, BDOF, affine, SBT) and the rectangular inter leaves in phase A, and
 dependent quantization in every leaf class.  It runs F
 mutually independent frames at once (one temporal layer's B frames): the
 buffers carry a leading frame axis, every row its frame index, and the
@@ -36,6 +37,9 @@ _MAX_BATCH = 128
 # phase-B leaf batches run since the caller last set this to 0 (each is
 # one eager launch sequence; the host-bound wave's cost is their number)
 batches = 0
+# None, or a dict to which each frame_wave_batch adds its phase-B batches
+# per leaf class (intra, isp, ciip, rect)
+batch_kinds = None
 
 
 def _op_class(op: int, ip: int):
@@ -238,10 +242,8 @@ def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
     (Cb frames, then Cr frames).  Returns (rec, lev, use_cclm or None),
     rec and lev (2B, s/2, s/2) with the Cb rows first."""
     cs = s // 2
-    F = carry["bcb"].shape[0]
     cx2, cy2 = x // 2, y // 2
-    x2, y2, f2 = (torch.cat([cx2, cx2]), torch.cat([cy2, cy2]),
-                  torch.cat([f, f + F]))
+    x2, y2, f2 = _chroma_rows(carry, f, x, y)
     top, left = intra_pred.build_references(
         carry["bc"], x2, y2, s=cs, is_luma=False, frame_w=frame_w // 2,
         frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd,
@@ -268,21 +270,26 @@ def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
     return rec, lev, use_c
 
 
-def _put_leaf(carry, f, x, y, s: int, rec_y, lev_y, chroma, encode: bool,
-              midx=None, lidx=None):
-    """Scatter a batch of square leaves' recon (and, encoding, levels and
+def _chroma_rows(carry, f, x, y):
+    """(x2, y2, f2): the chroma rows of a leaf batch, Cb then Cr, indexing
+    the stacked chroma planes (Cb frames, then Cr frames)."""
+    F = carry["bcb"].shape[0]
+    return (torch.cat([x // 2, x // 2]), torch.cat([y // 2, y // 2]),
+            torch.cat([f, f + F]))
+
+
+def _put_leaf(carry, f, x, y, w: int, h: int, rec_y, lev_y, chroma,
+              encode: bool, midx=None, lidx=None):
+    """Scatter a batch of w x h leaves' recon (and, encoding, levels and
     tool indices) into the carry, in place."""
     rec_c, lev_c, use_c = chroma
-    cs = s // 2
-    F = carry["bcb"].shape[0]
-    x2, y2, f2 = (torch.cat([x // 2, x // 2]), torch.cat([y // 2, y // 2]),
-                  torch.cat([f, f + F]))
-    _scatter(carry["by"], rec_y, f, x, y, s, s, 1)
-    _scatter(carry["bc"], rec_c, f2, x2, y2, cs, cs, 1)
+    x2, y2, f2 = _chroma_rows(carry, f, x, y)
+    _scatter(carry["by"], rec_y, f, x, y, w, h, 1)
+    _scatter(carry["bc"], rec_c, f2, x2, y2, w // 2, h // 2, 1)
     if not encode:
         return
-    _scatter(carry["ly"], lev_y, f, x, y, s, s, 0)
-    _scatter(carry["lc"], lev_c, f2, x2, y2, cs, cs, 0)
+    _scatter(carry["ly"], lev_y, f, x, y, w, h, 0)
+    _scatter(carry["lc"], lev_c, f2, x2, y2, w // 2, h // 2, 0)
     if midx is not None:
         _scatter8(carry["mtsp"], midx, f, x, y)
         _scatter8(carry["lfnstp"], lidx, f, x, y)
@@ -340,7 +347,8 @@ def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
         frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
         encode=encode, rdoq=rdoq, lam_rd=lam_rd,
         cclm=cclm and (encode or bool(host[:, 8].any())), dq=dq)
-    _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode, midx, lidx)
+    _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, chroma, encode, midx,
+              lidx)
 
 
 def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
@@ -385,7 +393,7 @@ def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
         frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
         encode=encode, rdoq=rdoq, lam_rd=lam_rd,
         cclm=cclm and (encode or bool(host[:, 8].any())), dq=dq)
-    _put_leaf(carry, f, x, y, s, rec_y, lev_y, chroma, encode)
+    _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, chroma, encode)
 
 
 def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
@@ -430,15 +438,52 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
                                encode, rdoq, lam_rd, dq)
     # Cb and Cr as one batch of 2B rows over the stacked chroma planes
-    x2, y2, f2 = (torch.cat([x // 2, x // 2]), torch.cat([y // 2, y // 2]),
-                  torch.cat([f, f + F]))
+    x2, y2, f2 = _chroma_rows(carry, f, x, y)
     mc_c = torch.cat([mcpred(refs[1], refs[4], x // 2, y // 2, cs, False),
                       mcpred(refs[2], refs[5], x // 2, y // 2, cs, False)])
     pred_c = ((mc_c + planar(carry["bc"], x2, y2, f2, cs, False) + 1)
               >> 1).clamp(0, mx)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
                                bd, encode, rdoq, lam_rd, dq)
-    _put_leaf(carry, f, x, y, s, rec_y, lev_y, (rec_c, lev_c, None), encode)
+    _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, (rec_c, lev_c, None),
+              encode)
+
+
+def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
+                frame_w: int, frame_h: int, log2_ctu: int, bd: int,
+                encode: bool, rdoq: bool, dq: bool = False):
+    """One dependency level's rectangular (BT and TT) intra leaves of one
+    shape, w wide and h high (twin of the reference's _rect_batch): the 67
+    regular modes and DM chroma, no square-only tool.  The sibling that
+    precedes a leaf in coding order shares its parent's Morton index, so
+    the parent square (x & ~(ps-1), y & ~(ps-1)) of side ps = max(w, h)
+    counts as coded, as for ISP stripes.  Cb and Cr run as one batch."""
+    x, y, mode, f = rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 16]
+    n_ctu_x = frame_w >> log2_ctu
+    ps = max(w, h)
+    px0, py0 = x & ~(ps - 1), y & ~(ps - 1)
+    geo = dict(n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd)
+    top, left = intra_pred.build_references_rect(
+        carry["by"], x, y, w=w, h=h, is_luma=True, frame_w=frame_w,
+        frame_h=frame_h, leaf_x=px0, leaf_y=py0, leaf_w=ps, leaf_h=ps, f=f,
+        **geo)
+    pred_y = intra_pred.predict_rect(top, left, mode, w=w, h=h,
+                                     is_luma=True, bd=bd)
+    rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, w, h, qp, bd,
+                               encode, rdoq, lam_rd, dq)
+    x2, y2, f2 = _chroma_rows(carry, f, x, y)
+    cw, ch = w // 2, h // 2
+    tc, lc = intra_pred.build_references_rect(
+        carry["bc"], x2, y2, w=cw, h=ch, is_luma=False,
+        frame_w=frame_w // 2, frame_h=frame_h // 2,
+        leaf_x=torch.cat([px0, px0]) // 2, leaf_y=torch.cat([py0, py0]) // 2,
+        leaf_w=ps // 2, leaf_h=ps // 2, f=f2, **geo)
+    pred_c = intra_pred.predict_rect(tc, lc, torch.cat([mode, mode]), w=cw,
+                                     h=ch, is_luma=False, bd=bd)
+    rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cw, ch, qp,
+                               bd, encode, rdoq, lam_rd, dq)
+    _put_leaf(carry, f, x, y, w, h, rec_y, lev_y, (rec_c, lev_c, None),
+              encode)
 
 
 # ---------------------------------------------------------------------------
@@ -457,16 +502,27 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
     planes_*: int32 device planes (source when encoding, parsed levels
     when decoding); refs: the padded (y, cb, cr) reference planes of a P
     frame, or (l0 y, cb, cr, l1 y, cb, cr) of a B frame, and inter:
-    {8/16/32: numpy phase-A rows}; tools: the intra tool flags of
-    frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr, levels_y,
-    levels_cb, levels_cr, mts, lfnst, cmode, sbt); the last four are the
-    8x8 grids of the chosen tool indices (encoding; zero when decoding)."""
+    {8/16/32 and the RECT_SHAPES: numpy phase-A rows}; tools: the tool
+    flags of frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr,
+    levels_y, levels_cb, levels_cr, mts, lfnst, cmode, sbt); the last four
+    are the 8x8 grids of the chosen tool indices (encoding; zero when
+    decoding)."""
     fr = dict(slots=slots, py=planes_y, pcb=planes_cb, pcr=planes_cr)
     if inter_enabled:
         fr.update(refs=refs, inter=inter)
     return frame_wave_batch([fr], frame_w=frame_w, frame_h=frame_h, qp=qp,
                             bd=bd, encode=encode, log2_ctu=log2_ctu,
                             rdoq=rdoq, lam_rd=lam_rd, **tools)[0]
+
+
+def _frame_rows(frames_in, key):
+    """Every frame's phase-A rows of ``key`` (a square size or a rect
+    shape), each with its frame index appended."""
+    return np.concatenate(
+        [np.concatenate([fr["inter"][key],
+                         np.full((fr["inter"][key].shape[0], 1), f,
+                                 np.int32)], axis=1)
+         for f, fr in enumerate(frames_in)])
 
 
 def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
@@ -486,7 +542,10 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     ISP are read from the slot rows); ciip: the CIIP leaf class of phase
     B; dmvr, bdof, gpm, affine: phase A's inter tools (DMVR and BDOF only
     for BI-symmetric frames, as the callers gate them); sbt: SBT in phase
-    A; dq: dependent quantization in every leaf class.  Returns a list
+    A; dq: dependent quantization in every leaf class.  The rectangular
+    (BT and TT) leaves of the multi-type tree run in phase A (inter, the
+    rect arrays of make_slots_split in ``inter``) and phase B (intra)
+    wherever the slot tables hold them.  Returns a list
     of per-frame 10-tuples, each equal to frame_wave's for that frame
     alone."""
     F = len(frames_in)
@@ -522,14 +581,14 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                for fr in frames_in]
         refs = tuple(torch.stack([r[i] for r in six]) for i in range(6))
         for s_sz in (8, 16, 32):
-            rows = np.concatenate(
-                [np.concatenate([fr["inter"][s_sz],
-                                 np.full((fr["inter"][s_sz].shape[0], 1), f,
-                                         np.int32)], axis=1)
-                 for f, fr in enumerate(frames_in)])
-            recon._inter_batch_pass(carry, rows, refs, s_sz, qp, bd, encode,
-                                    rdoq, lam_rd, dmvr=dmvr, bdof=bdof,
-                                    gpm=gpm, affine=affine, sbt=sbt, dq=dq)
+            recon._inter_batch_pass(carry, _frame_rows(frames_in, s_sz),
+                                    refs, s_sz, qp, bd, encode, rdoq, lam_rd,
+                                    dmvr=dmvr, bdof=bdof, gpm=gpm,
+                                    affine=affine, sbt=sbt, dq=dq)
+        for sh in planmod.RECT_SHAPES:
+            recon._inter_batch_pass_rect(carry, _frame_rows(frames_in, sh),
+                                         refs, *sh, qp, bd, encode, rdoq,
+                                         lam_rd, dq)
 
     sched = build_schedule_batch([fr["slots"] for fr in frames_in], frame_h,
                                  frame_w)
@@ -543,6 +602,9 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
               encode=encode, rdoq=rdoq, dq=dq)
     global batches
     batches += len(sched)
+    if batch_kinds is not None:
+        for (kind, *_), _ in sched:
+            batch_kinds[kind] = batch_kinds.get(kind, 0) + 1
     o = 0
     for (kind, w, h, d), rows in sched:
         rt = all_rows[o:o + rows.shape[0]]
@@ -555,6 +617,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                        **kw)
         elif kind == "ciip" and ciip and refs is not None:
             _ciip_batch(carry, rt, refs, qp, lam_rd, s=w, **kw)
+        elif kind == "rect":
+            _rect_batch(carry, rt, qp, lam_rd, w=w, h=h, **kw)
         else:
             raise ValueError(f"leaf class {kind!r} is not in this slice")
 
