@@ -80,7 +80,23 @@ Phases, in order; any failure exits non-zero:
    7 runs in a process of its own beside phases 5 and 6, so the walls
    and card busy shares of phases 5, 6 and 7 are measured with both
    running (the card's busy share is the device's); its lines print
-   after phase 6.
+   after phase 6;
+8. LMCS (luma mapping with chroma residual scaling), one model per frame
+   through the frame-batched wave: (8a) test_lmcs.py's all-intra and GOP2
+   clips (64x96) and test_tt.py's LMCS config (64x96 GOP4 with MTT, TT
+   and the inter toolset) encoded on the card must equal the spec
+   model's bitstream and decisions and decode on the card and in the
+   spec model, hashes verified; every leaf class (intra with MTS, LFNST,
+   MIP and CCLM, ISP, rect, CIIP) and phase A (square with every inter
+   tool, SBT and DQ; rect) with a CRS LUT at both clamps (512, 8192) and
+   residuals of both signs, the scaled component and chroma choice, and
+   the inverse mapping before the loop filters, on the card must equal
+   the CPU path; (8b) phase 7b's 3 frames of 1080p with LMCS on
+   (7b's toolset with LMCS): hashes verified, recon == decoded,
+   3 me_sad launches at 11 keys, the trellis launched, with stage and
+   per-layer times, the phase-B batches per leaf class and the encode
+   and decode walls against 7b's in the same process.  Phase 8 runs
+   after phase 7 in its process, beside phases 5 and 6.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -544,6 +560,15 @@ def _spec_clips():
                                              isp=True, mrl=True, sbt=True,
                                              dq=True, alf=True, **MTT,
                                              **RA_TOOLS)),
+        # test_lmcs.py:52 and :61, test_tt.py:112
+        "lmcs_ai": (motion_frames(2, 64, 96, seed=70),
+                    dict(qp=32, intra_period=1, lmcs=True)),
+        "lmcs_gop2": (motion_frames(4, 64, 96, seed=71),
+                      dict(qp=32, intra_period=0, gop=2, lmcs=True)),
+        "lmcs_tt": (motion_frames(4, 64, 96, seed=81),
+                    dict(qp=32, intra_period=0, gop=4, mmvd=True, sbt=True,
+                         ciip=True, bcw=True, gpm=True, affine=True,
+                         lmcs=True, dq=True, **MTT)),
     }
 
 
@@ -582,10 +607,11 @@ def _spec(name):
 
 
 def _held_to_spec(tag, dev, name):
-    """Encode clip ``name`` on the card, hold its bytes against the spec
-    model's and decode it on the card; the card's recon, the card's
-    decoded planes and the spec model's decoded planes must agree.
-    Returns (bytes, the card's decisions, the spec model's decisions)."""
+    """Encode clip ``name`` on the card, hold its bytes and whole-plane
+    decisions against the spec model's and decode it on the card; the
+    card's recon, the card's decoded planes and the spec model's decoded
+    planes must agree.  Returns (bytes, the card's decisions, the spec
+    model's decisions)."""
     from vvctpu_torch.pipeline import encoder as tenc
     from vvctpu_torch.spec import sequence as tseq
     frames, kw = _spec_clips()[name]
@@ -595,6 +621,7 @@ def _held_to_spec(tag, dev, name):
     sdata, sdecs, sout = _spec(name)
     if data != sdata:
         raise AssertionError(f"{tag}: card bitstream != spec model's")
+    _decisions_equal(tag, decs, sdecs)
     out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
     if not _same_planes(recons, out, sout):
         raise AssertionError(f"{tag}: recon/decoder mismatch")
@@ -1228,32 +1255,23 @@ def phase_ra_tools(dev):
 # ---------------------------------------------------------------------------
 
 MTT = dict(mtt=True, tt=True)
-# tool indices that the port records at a leaf's top-left 8x8 granule only
-# (the one the entropy coder reads), where the spec model fills the leaf
-_ORIGIN_ONLY = ("mts8", "lfnst8", "cmode8")
 
 
-def _decisions_equal(tag, decs, sdecs, h, w):
-    """Every field of each frame's decisions equals the spec model's, the
-    _ORIGIN_ONLY fields at each leaf's top-left granule."""
+def _decisions_equal(tag, decs, sdecs):
+    """Every field of each frame's decisions equals the spec model's, on
+    whole planes (FrameDecisions.equal)."""
     import dataclasses
-
-    from vvctpu_torch.pipeline import plan as tplan
     if len(decs) != len(sdecs):
         raise AssertionError(f"{tag}: {len(decs)} decisions, the spec model "
                              f"has {len(sdecs)}")
     for i, (a, b) in enumerate(zip(decs, sdecs)):
-        op, xs, ys = tplan.leaf_plan(a, h, w)[:3]
-        at = (ys[op != 0] // 8, xs[op != 0] // 8)
-        for f in dataclasses.fields(a):
-            x, y = getattr(a, f.name), getattr(b, f.name)
-            if not isinstance(x, np.ndarray):
-                continue
-            if f.name in _ORIGIN_ONLY:
-                x, y = x[at], y[at]
-            if not np.array_equal(x, y):
-                raise AssertionError(f"{tag}: frame {i} {f.name} differs "
-                                     "from the spec model's")
+        if not a.equal(b):
+            bad = [f.name for f in dataclasses.fields(a)
+                   if isinstance(getattr(a, f.name), np.ndarray)
+                   and not np.array_equal(getattr(a, f.name),
+                                          getattr(b, f.name))]
+            raise AssertionError(f"{tag}: frame {i} {bad} differ from the "
+                                 "spec model's")
 
 
 def _rect_counts(decs, h, w):
@@ -1455,22 +1473,22 @@ def _mtt_decide_times(dev, frames, cfg):
 
 def phase_mtt(dev):
     """Phase 7: the multi-type tree (BT and TT splits) in I, P and B
-    frames; returns the 1080p path's kernel launches (me_sad, dq_trellis)
-    and the trellis's largest error against its twin at its shapes."""
+    frames; returns the 1080p path's kernel launches (me_sad, dq_trellis),
+    the trellis's largest error against its twin at its shapes and 7b's
+    run (_run_full's numbers)."""
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.spec import hls
     from vvctpu_torch.spec import sequence as tseq
     counts = []
-    data, decs, sdecs = _held_to_spec("64x96 AI with MTT and TT", dev,
-                                      "mtt_intra")
-    _decisions_equal("[7a] 64x96 AI with MTT and TT", decs, sdecs, 64, 96)
+    data, decs, _ = _held_to_spec("64x96 AI with MTT and TT", dev,
+                                  "mtt_intra")
     counts.append(_rect_counts(decs, 64, 96))
     print(f"[7a] 64x96 AI, 4 frames, MTT, TT, MIP, MRL, ISP: {len(data)} "
           "bytes and decisions equal to the spec model; card and spec "
           f"decoders verified hashes; {_counts_line(*counts[-1])}")
     kme.trace = []
-    data, decs, sdecs = _held_to_spec("64x256 GOP4 with MTT and TT", dev,
-                                      "mtt_ra_tools")
+    data, decs, _ = _held_to_spec("64x256 GOP4 with MTT and TT", dev,
+                                  "mtt_ra_tools")
     keys, kme.trace = kme.trace, None
     # one me_sad per P frame and one per list for each B frame, 11 keys
     plan = tseq.gop_plan(5, 0, 4)
@@ -1479,14 +1497,11 @@ def phase_mtt(dev):
     if keys != want:
         raise AssertionError(f"[7a] me_sad launches (keys) {keys}, expected "
                              f"{want}")
-    _decisions_equal("[7a] 64x256 GOP4 with MTT and TT", decs, sdecs, 64,
-                     256)
     counts.append(_rect_counts(decs, 64, 256))
     print(f"[7a] 64x256 GOP4 QP27, 5 frames, config #4's toolset with MTT "
-          f"and TT: {len(data)} bytes and decisions equal to the spec model "
-          "(mts8, lfnst8, cmode8 at each leaf's top-left granule); card and "
-          f"spec decoders verified hashes; me_sad launches {len(keys)}, all "
-          f"at 11 keys; {_counts_line(*counts[-1])}")
+          f"and TT: {len(data)} bytes and decisions equal to the spec "
+          "model; card and spec decoders verified hashes; me_sad launches "
+          f"{len(keys)}, all at 11 keys; {_counts_line(*counts[-1])}")
     print(f"[7a] multi-type tree: card == CPU on {_mtt_worst_cases(dev)} "
           "worst-case batches (rect_size_pass, rect refine and BI cost at "
           "the 8 geometries; rect intra leaves and phase A of rect inter "
@@ -1527,7 +1542,250 @@ def phase_mtt(dev):
         raise AssertionError(f"phase 7: never chose {missing}")
     dq_err = _dq_path_times(dev, r["dq_path"], tag)
     _mtt_decide_times(dev, frames, cfg)
-    return r["launches"], r["dq_launches"], dq_err
+    return r["launches"], r["dq_launches"], dq_err, r
+
+
+# ---------------------------------------------------------------------------
+# phase 8: LMCS, one model per frame, in I, P and B frames
+# ---------------------------------------------------------------------------
+
+# a codeword model whose CRS LUT takes both clamps: mapped luma below 128
+# (source below 32) scales by 4x (8192), 128-175 by 1/4x (512)
+LMCS_CW = (64, 64) + (4,) * 12 + (40, 40)
+
+
+def _lmcs_leaf_out(kind, sy, sc, by, bc, fwd, crs, *refs, rows, s=0, w=0,
+                   h=0, d=0, flags=None):
+    """One LMCS leaf batch (kind "intra", "isp", "rect", "ciip", "phase_a"
+    or "phase_a_rect") of one frame, encoding, on a carry whose source
+    planes are sy and the (Cb, Cr) stack sc, recon buffers by and bc and
+    LUTs fwd and crs; returns the carry's planes."""
+    from vvctpu_torch.pipeline import recon, wave
+    dev = sy.device
+    hh, ww = sy.shape
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    carry = dict(by=by[None].clone(), bc=bc.clone(), ly=z(1, hh, ww),
+                 lc=z(2, hh // 2, ww // 2), sy=sy[None], sc=sc,
+                 fwd=fwd[None], crs=crs[None], mtsp=z(1, hh // 8, ww // 8),
+                 lfnstp=z(1, hh // 8, ww // 8), cmodep=z(1, hh // 8, ww // 8),
+                 sbtp=z(1, hh // 8, ww // 8))
+    for k in ("b", "l", "s"):
+        carry[k + "cb"], carry[k + "cr"] = carry[k + "c"].split(1)
+    geo = dict(frame_w=ww, frame_h=hh, log2_ctu=6, bd=8, encode=True,
+               rdoq=True)
+    rt = torch.as_tensor(rows, device=dev)
+    refs = [r[None] for r in refs]
+    if kind == "intra":
+        wave._intra_batch(carry, rt, rows, 32, 347, s=s, mts=True,
+                          lfnst=True, cclm=True, mip=True, **flags, **geo)
+    elif kind == "isp":
+        wave._isp_batch(carry, rt, rows, 32, 347, s=s, d=d, cclm=True,
+                        **flags, **geo)
+    elif kind == "rect":
+        wave._rect_batch(carry, rt, 32, 347, w=w, h=h, **flags, **geo)
+    elif kind == "ciip":
+        wave._ciip_batch(carry, rt, refs, 32, 347, s=s, **flags, **geo)
+    elif kind == "phase_a":
+        recon._inter_batch_pass(carry, rows, refs, s, 32, 8, True, rdoq=True,
+                                lam_rd=347, **flags)
+    else:
+        recon._inter_batch_pass_rect(carry, rows, refs, w, h, 32, 8, True,
+                                     rdoq=True, lam_rd=347, **flags)
+    return tuple(carry[k] for k in ("by", "ly", "bc", "lc", "mtsp", "lfnstp",
+                                    "cmodep", "sbtp"))
+
+
+def _lmcs_worst_cases(dev):
+    """LMCS on the card against the CPU path on worst-case inputs: a CRS
+    LUT at both clamps (512, 8192) over a source with dark and mid-grey
+    halves (so leaves take either clamp) and noise (residuals of both
+    signs), in every leaf class, in phase A (square with every inter
+    tool, SBT and DQ; rect), the scaled component and chroma choice at
+    saturated residuals, and the inverse mapping before the loop filters;
+    returns the number of cases."""
+    from vvctpu_torch.kernels import intra_pred as kip
+    from vvctpu_torch.kernels import loopfilter as klf
+    from vvctpu_torch.pipeline import plan as tplan
+    from vvctpu_torch.pipeline import recon
+    from vvctpu_torch.spec import codec as scodec
+    from vvctpu_torch.spec import lmcs as slmcs
+    rng = np.random.default_rng(8)
+    h, w = 64, 128
+    m = kip.MARGIN
+    fwd, inv = slmcs.build_luts(LMCS_CW)
+    crs = slmcs.build_crs_lut(LMCS_CW)
+    if set(crs) != {512, 5120, 8192}:
+        raise AssertionError(f"CRS LUT scales {set(crs)}")
+    src = np.where(np.arange(w)[None] < w // 2,
+                   rng.integers(0, 31, (h, w)),
+                   rng.integers(40, 221, (h, w))).astype(np.int32)
+    msrc = fwd[src]
+    sc = np.stack([src[::2, ::2], src[1::2, 1::2]])
+    by = np.zeros((h + 1 + m, w + 1 + m), np.int32)
+    by[1:h + 1, 1:w + 1] = msrc
+    by[1:h + 1, 1:w + 1] ^= rng.integers(0, 4, (h, w)).astype(np.int32)
+    bc = np.zeros((2, h // 2 + 1 + m, w // 2 + 1 + m), np.int32)
+    bc[:, 1:h // 2 + 1, 1:w // 2 + 1] = sc
+    sat = rng.choice([0, 255], (h, w)).astype(np.int32)
+    refs = [np.pad(src, 80, mode="edge"), np.pad(sc[0], 40, mode="edge"),
+            np.pad(sat[::2, ::2], 40, mode="edge"),
+            np.pad(sat, 80, mode="edge"), np.pad(sc[1], 40, mode="edge"),
+            np.pad(src[1::2, 1::2], 40, mode="edge")]
+    planes = (msrc, sc, by, bc, fwd, crs)
+    n = 0
+
+    def grid(sw, sh, op):
+        ys, xs = np.mgrid[0:h:sh, 0:w:sw]
+        rows = np.zeros((xs.size, 17), np.int32)
+        rows[:, 0], rows[:, 1], rows[:, 2] = op, xs.ravel(), ys.ravel()
+        return rows
+
+    for s in (8, 16, 32):
+        rows = grid(s, s, s.bit_length() - 3)
+        rows[:, 3] = np.arange(rows.shape[0]) * 7 % (67 + 16)
+        for dq in (False, True):
+            n += _card_eq(f"lmcs intra {s} dq={dq}", dev,
+                          lambda *a, rows=rows, s=s, dq=dq: _lmcs_leaf_out(
+                              "intra", *a, rows=rows, s=s,
+                              flags=dict(dq=dq)), *planes)
+        for d in (1, 2):
+            r = rows.copy()
+            r[:, 3] %= 67
+            r[:, 15] = d
+            n += _card_eq(f"lmcs isp {s} d={d}", dev,
+                          lambda *a, rows=r, s=s, d=d: _lmcs_leaf_out(
+                              "isp", *a, rows=rows, s=s, d=d,
+                              flags=dict(dq=True)), *planes)
+        r = grid(s, s, 7 + s.bit_length() - 4)
+        k = r.shape[0]
+        r[:, 4:6] = (rng.integers(-270, 271, (k, 2)) * 4).astype(np.int32)
+        r[:, 11:13] = (rng.integers(-270, 271, (k, 2)) * 4).astype(np.int32)
+        r[:, 13] = np.arange(k) % 3
+        r[:, 14] = np.arange(k) % 3
+        n += _card_eq(f"lmcs ciip {s}", dev,
+                      lambda *a, rows=r, s=s: _lmcs_leaf_out(
+                          "ciip", *a, rows=rows, s=s, flags=dict(dq=True)),
+                      *planes, *refs)
+        nb = (h // s) * (w // s)
+        pa = np.zeros((nb, 14), np.int32)
+        pa[:, 0] = np.arange(nb) % (w // s) * s
+        pa[:, 1] = np.arange(nb) // (w // s) * s
+        pa[:, 2:6] = (rng.integers(-64, 65, (nb, 4)) * 4).astype(np.int32)
+        pa[:, 6] = np.arange(nb) % 3
+        pa[:, 7] = rng.integers(0, 3, nb)
+        pa[:, 9] = np.where(pa[:, 6] == 2, rng.integers(0, 65, nb), 0)
+        pa[:, 10] = (pa[:, 6] < 2) & (s >= 16)
+        pa[:, 11:13] = rng.choice([-8, 4, 8, -36], (nb, 2))
+        n += _card_eq(f"lmcs phase A {s}", dev,
+                      lambda *a, rows=pa, s=s: _lmcs_leaf_out(
+                          "phase_a", *a, rows=rows, s=s, flags=dict(
+                              dmvr=True, bdof=True, gpm=True, affine=True,
+                              sbt=True, dq=True)), *planes, *refs)
+    for i, (rw, rh) in enumerate(tplan.RECT_SHAPES):
+        r = grid(rw, rh, tplan.OP_RECT_INTRA0 + i)
+        r[:, 3] = np.arange(r.shape[0]) % 67
+        n += _card_eq(f"lmcs rect {rw}x{rh}", dev,
+                      lambda *a, rows=r, rw=rw, rh=rh: _lmcs_leaf_out(
+                          "rect", *a, rows=rows, w=rw, h=rh,
+                          flags=dict(dq=True)), *planes)
+        k = r.shape[0]
+        ir = np.zeros((k, 8), np.int32)
+        ir[:, :2] = r[:, 1:3]
+        ir[:, 2:6] = (rng.integers(-270, 271, (k, 4)) * 4).astype(np.int32)
+        ir[:, 6] = np.arange(k) % 3
+        n += _card_eq(f"lmcs phase A rect {rw}x{rh}", dev,
+                      lambda *a, rows=ir, rw=rw, rh=rh: _lmcs_leaf_out(
+                          "phase_a_rect", *a, rows=rows, w=rw, h=rh,
+                          flags=dict(dq=True)), *planes, *refs)
+    # the scaled component and chroma choice at saturated residuals
+    for cs in (4, 8, 16):
+        k = 16
+        scale = np.array([512, 8192] * (k // 2), np.int32)
+        blk = rng.choice([0, 255], (2, k, cs, cs)).astype(np.int32)
+        pred = (255 - blk).astype(np.int32)
+        f = np.arange(k, dtype=np.int32)
+        zero = np.zeros(k, np.int32)
+        n += _card_eq(f"lmcs component {cs}", dev,
+                      lambda *a, cs=cs: recon._component(
+                          a[0], a[1], a[2], a[3], a[3], cs, cs, 32, 8, True,
+                          True, 347, True, crs_sc=a[4]),
+                      blk[0], pred[0], f, zero, scale)
+        n += _card_eq(f"lmcs chroma_rd {cs}", dev,
+                      lambda *a, cs=cs: recon.chroma_rd(
+                          a[0], a[1], [(a[2], a[3]), (a[3], a[2])], cs, 32,
+                          8, True, 347, True, crs_sc=a[4]),
+                      blk[0], blk[1], pred[0], pred[1], scale)
+    # the inverse mapping before deblocking and SAO
+    dec = scodec.FrameDecisions.empty(h, w)
+    n += _card_eq("lmcs finish_frame_j", dev,
+                  lambda *a: klf.finish_frame_j(list(a[:3]), dec, 32, 347,
+                                                list(a[3:]), inv_lut=inv),
+                  msrc, sc[0], sc[1], src, sc[0], sc[1])
+    return n
+
+
+def phase_lmcs(dev, ref=None):
+    """Phase 8: LMCS in I, P and B frames, one model per frame; ``ref`` is
+    7b's run in the same process (phase_mtt's last result), against which
+    8b's walls are printed, or None.  Returns the 1080p path's kernel
+    launches (me_sad, dq_trellis)."""
+    from vvctpu_torch.spec import sequence as tseq
+    for name, what in (("lmcs_ai", "64x96 AI, 2 frames"),
+                       ("lmcs_gop2", "64x96 GOP2, 4 frames"),
+                       ("lmcs_tt", "64x96 GOP4, 4 frames, MTT, TT and the "
+                                   "inter toolset")):
+        data, _, _ = _held_to_spec(f"[8a] {what}", dev, name)
+        print(f"[8a] {what} with LMCS: {len(data)} bytes and decisions "
+              "equal to the spec model; card and spec decoders verified "
+              "hashes")
+    print(f"[8a] LMCS: card == CPU on {_lmcs_worst_cases(dev)} worst-case "
+          "batches (CRS scales 512 and 8192: intra with MTS/LFNST/MIP/CCLM, "
+          "ISP, CIIP, rect leaves, phase A square with every inter tool, "
+          "SBT and DQ and rect, the scaled component and chroma choice, "
+          "the inverse mapping before the loop filters)")
+    n = 3
+    cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=2, wpp=True,
+                             sbt=True, dq=True, alf=True, lmcs=True, **MTT,
+                             **RA_TOOLS)
+    r = _run_full(dev, synth_frames(n, 1080, 1920, seed=4), cfg)
+    tag = "[8b]"
+    # me_sad runs once for P2 and once per list for B1, at 11 keys
+    if r["me_keys"] != [11] * 3:
+        raise AssertionError(f"{tag} me_sad launches (keys) {r['me_keys']}, "
+                             "expected three at 11 keys")
+    if not r["dq_launches"]:
+        raise AssertionError(f"{tag} dq_trellis was never launched")
+    print(f"{tag} 1080p RA GOP2 QP32 WPP, 7b's toolset with LMCS, "
+          f"{n} frames (I0 P2 B1): "
+          f"{sum(r['bits']) / n:.1f} bits/frame (new data: the reference "
+          f"engine never ran it); me_sad launches {r['launches']}, all at "
+          "11 keys")
+    _report(tag, r, n)
+    print(f"{tag} phase-B batches of the encode per leaf class: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(r["batch_kinds"].items())))
+    for k in ("enc", "dec"):
+        lt = r[f"{k}_l"]
+        print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
+            f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
+    if ref is not None:
+        parts = []
+        for k, what in (("enc", "encode"), ("dec", "decode")):
+            a, b = r[f"t_{k}"], ref[f"t_{k}"]
+            wa = r[f"{k}_t"]["wave"] / r["batches"] * 1e3
+            wb = ref[f"{k}_t"]["wave"] / ref["batches"] * 1e3
+            parts.append(f"{what} {a:.2f} s against {b:.2f} s "
+                         f"({100 * (a / b - 1):+.1f} %), wave per batch "
+                         f"{wa:.1f} against {wb:.1f} ms, card busy "
+                         f"{r['busy_' + k].share:.1f} against "
+                         f"{ref['busy_' + k].share:.1f} %")
+        print(f"{tag} LMCS against 7b (same frames, toolset and process, "
+              f"one after the other): {'; '.join(parts)}; bits/frame "
+              f"{sum(r['bits']) / n:.1f} against {sum(ref['bits']) / n:.1f}, "
+              f"phase-B batches {r['batches']} against {ref['batches']}")
+    return r["launches"], r["dq_launches"]
 
 
 def walls(dev):
@@ -1555,11 +1813,12 @@ def walls(dev):
               + _stages_line("encode", r["enc_t"], r["t_enc"]))
 
 
-def _phase_mtt_side(spec):
-    """phase_mtt in a process of its own, on a CUDA context of its own,
-    with the spec model's results for 7a given as ``spec`` (name ->
-    _spec's result); returns (what it printed, its results, its
-    seconds).  On a failure it writes what it printed to stderr."""
+def _phase_side(spec):
+    """phase_mtt then phase_lmcs in a process of their own, on a CUDA
+    context of its own, with the spec model's results for 7a and 8a given
+    as ``spec`` (name -> _spec's result); returns (what they printed,
+    phase 7's results, its seconds, phase 8's results, its seconds).  On
+    a failure it writes what it printed to stderr."""
     import contextlib
     import io
     from concurrent.futures import Future
@@ -1567,14 +1826,17 @@ def _phase_mtt_side(spec):
         _SPEC[name] = Future()
         _SPEC[name].set_result(res + (0.0,))
     buf = io.StringIO()
-    t0 = time.time()
     try:
         with contextlib.redirect_stdout(buf):
-            out = phase_mtt(torch.device("cuda"))
+            t0 = time.time()
+            out7 = phase_mtt(torch.device("cuda"))
+            t7 = time.time() - t0
+            out8 = phase_lmcs(torch.device("cuda"), out7[3])
+            t8 = time.time() - t0 - t7
     except BaseException:
         sys.stderr.write(buf.getvalue())
         raise
-    return buf.getvalue(), out, time.time() - t0
+    return buf.getvalue(), out7[:3], t7, out8, t8
 
 
 def main() -> int:
@@ -1593,9 +1855,10 @@ def main() -> int:
     # worker processes run it while the card runs the phases before them
     ctx = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(max_workers=2, mp_context=ctx)
-    # phase 7 runs in a process of its own beside phases 5 and 6: each
-    # phase's host is one core and its card mostly idle, and one after
-    # the other they would leave the script no margin within its limit
+    # phases 7 and 8 run in a process of their own beside phases 5 and
+    # 6: each phase's host is one core and its card mostly idle, and one
+    # after the other they would leave the script no margin within its
+    # limit
     side = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
     try:
         for name in _spec_clips():
@@ -1604,15 +1867,16 @@ def main() -> int:
         drow = timed("phase 1 dq_trellis", phase_dq_kernel)
         timed("phase 2", phase_small)
         launches = timed("phase 3", phase_full) + timed("phase 4", phase_ra)
-        mtt = side.submit(_phase_mtt_side, {n: _spec(n) for n in
-                                            ("mtt_intra", "mtt_ra_tools")})
+        fut = side.submit(_phase_side, {
+            n: _spec(n) for n in ("mtt_intra", "mtt_ra_tools", "lmcs_ai",
+                                  "lmcs_gop2", "lmcs_tt")})
         launches += timed("phase 5", phase_ai)
         me4, dq_launches, dq_err = timed("phase 6", phase_ra_tools)
         t0 = time.time()
-        text, (me7, dq7, dq_err7), took = mtt.result()
+        text, (me7, dq7, dq_err7), t7, (me8, dq8), t8 = fut.result()
         print(text, end="")
-        print(f"[time] phase 7: {took:.1f} s, beside phases 5 and 6 (then "
-              f"waited for {time.time() - t0:.1f} s)")
+        print(f"[time] phases 7 and 8: {t7:.1f} s and {t8:.1f} s, beside "
+              f"phases 5 and 6 (then waited for {time.time() - t0:.1f} s)")
     finally:
         side.shutdown(wait=True, cancel_futures=True)
         pool.shutdown(wait=True, cancel_futures=True)
@@ -1622,7 +1886,7 @@ def main() -> int:
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
-                    launches=launches + me4 + me7,
+                    launches=launches + me4 + me7 + me8,
                     equal=krow["max_abs_err"] == 0,
                     max_abs_err=krow["max_abs_err"], ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
@@ -1630,7 +1894,7 @@ def main() -> int:
                dict(name="dq_trellis", route="cuda",
                     source="vvctpu_torch/csrc/dq_trellis.cu",
                     replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
-                    launches=dq_launches + dq7,
+                    launches=dq_launches + dq7 + dq8,
                     equal=max(drow["max_abs_err"], dq_err, dq_err7) == 0,
                     max_abs_err=max(drow["max_abs_err"], dq_err, dq_err7),
                     ms=drow["ms"],

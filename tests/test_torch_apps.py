@@ -1,0 +1,246 @@
+"""The port's CLI against the reference CLI (test_apps.py's,
+test_streamtools.py's and test_filmgrain.py's expectations) on streams
+that the port's CLI writes, 64x64 and 1-3 frames: the stream tools give
+the reference's bytes and their outputs decode in the port with the
+hashes verified; cfg files, the hash SEI types, and options outside the
+slice refused."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vvctpu.__main__ import main as ref_main  # noqa: E402
+from vvctpu.io import cfg as ref_cfg  # noqa: E402
+from vvctpu_torch import __main__ as tcli  # noqa: E402
+from vvctpu_torch.core import bitstream as tbs  # noqa: E402
+from vvctpu_torch.io import cfg as tcfg  # noqa: E402
+from vvctpu_torch.io import filmgrain as tfg  # noqa: E402
+from vvctpu_torch.io import yuv  # noqa: E402
+from vvctpu_torch.pipeline import encoder as tenc  # noqa: E402
+
+from test_inter_parity import motion_frames  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def _port_stream(tmp_path, name, n=2, seed=60, extra=()):
+    """Encode n 64x64 frames with the port's CLI on the CPU; returns (the
+    stream's path, the frames, the recon read back)."""
+    frames = motion_frames(n, 64, 64, seed=seed)
+    src = tmp_path / f"{name}.yuv"
+    yuv.write_yuv(str(src), frames)
+    out, rec = tmp_path / f"{name}.bin", tmp_path / f"{name}_rec.yuv"
+    assert tcli.main(["encode", "-i", str(src), "--wdt", "64", "--hgt", "64",
+                      "-q", "32", "-b", str(out), "-o", str(rec),
+                      "--device", "cpu", *extra]) == 0
+    return out, frames, yuv.read_yuv(str(rec), 64, 64)
+
+
+def _decode(data):
+    return tenc.decode_sequence(data, check_hash=True, device="cpu")[0]
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(
+        np.array_equal(x[c], y[c]) for x, y in zip(a, b) for c in range(3))
+
+
+def _both(tmp_path, args):
+    """Run a stream tool in the port's CLI and in the reference's, each
+    writing its own output (the argument after -o); returns both
+    outputs' bytes."""
+    i = args.index("-o") + 1
+    outs = []
+    for tag, fn in (("port", tcli.main), ("ref", ref_main)):
+        path = tmp_path / f"{tag}_{args[0]}.out"
+        assert fn(args[:i] + [str(path)] + args[i + 1:]) == 0
+        outs.append(path.read_bytes())
+    return outs
+
+
+def test_parcat(tmp_path):
+    """Two segments concatenate to a 4-frame stream that decodes to both
+    segments' recon."""
+    a, _, ra = _port_stream(tmp_path, "a", seed=80, extra=["--ip", "0"])
+    b, _, rb = _port_stream(tmp_path, "b", seed=81, extra=["--ip", "0"])
+    got, want = _both(tmp_path, ["parcat", str(a), str(b), "-o", ""])
+    assert got == want
+    assert _same(_decode(got), ra + rb)
+
+
+@pytest.mark.parametrize("keep", [False, True])
+def test_sei_remove(tmp_path, keep):
+    p, _, rec = _port_stream(tmp_path, "s", extra=["--ip", "0"])
+    args = ["sei-remove", "-b", str(p), "-o", ""] + (["--keep-hash"]
+                                                      if keep else [])
+    got, want = _both(tmp_path, args)
+    size = p.stat().st_size
+    assert got == want
+    assert len(got) <= size if keep else len(got) < size
+    suffix = [n for n in tbs.read_annexb(got)
+              if n.nal_type == tbs.NAL_SUFFIX_SEI]
+    assert bool(suffix) == keep
+    assert _same(_decode(got), rec)
+
+
+def test_extract_sublayer(tmp_path):
+    """A GOP2 stream (I0 P2 B1) keeps its temporal layer 0 pictures."""
+    p, _, rec = _port_stream(tmp_path, "g", n=3,
+                             extra=["--ip", "0", "--gop", "2"])
+    got, want = _both(tmp_path, ["extract", "-b", str(p), "--tid", "0",
+                                 "-o", ""])
+    assert got == want
+    assert _same(_decode(got), [rec[0], rec[2]])
+
+
+def test_merge_and_extract_layer(tmp_path):
+    a, _, ra = _port_stream(tmp_path, "a", n=1, seed=63)
+    b, _, _ = _port_stream(tmp_path, "b", n=1, seed=64, extra=["-q", "35"])
+    got, want = _both(tmp_path, ["merge", str(a), str(b), "-o", ""])
+    assert got == want
+    merged = tmp_path / "m.bin"
+    merged.write_bytes(got)
+    for layer, src in ((0, a), (1, b)):
+        out, ref = _both(tmp_path, ["extract", "-b", str(merged), "--layer",
+                                    str(layer), "-o", ""])
+        assert out == ref == src.read_bytes()
+    assert _same(_decode(a.read_bytes()), ra)
+
+
+def test_subpic_merge_and_extract(tmp_path):
+    """Two streams merged as a 2x1 subpicture grid extract back to
+    themselves; the port refuses the merged stream (subpictures are
+    outside its slice) and decodes each extracted one."""
+    a, _, ra = _port_stream(tmp_path, "a", n=1, seed=65)
+    b, _, rb = _port_stream(tmp_path, "b", n=1, seed=66)
+    got, want = _both(tmp_path, ["subpic-merge", str(a), str(b), "--grid",
+                                 "2x1", "-o", ""])
+    assert got == want
+    merged = tmp_path / "m.bin"
+    merged.write_bytes(got)
+    with pytest.raises(ValueError, match="subpictures"):
+        _decode(got)
+    for idx, src, rec in ((0, a, ra), (1, b, rb)):
+        out, ref = _both(tmp_path, ["subpic-extract", "-b", str(merged),
+                                    "--idx", str(idx), "-o", ""])
+        assert out == ref == src.read_bytes()
+        assert _same(_decode(out), rec)
+
+
+def test_info(tmp_path, capsys):
+    p, _, _ = _port_stream(tmp_path, "i", n=1)
+    capsys.readouterr()
+    assert tcli.main(["info", "-b", str(p)]) == 0
+    port = capsys.readouterr().out
+    assert ref_main(["info", "-b", str(p)]) == 0
+    assert port == capsys.readouterr().out
+    assert "SPS" in port and "SUFFIX_SEI" in port
+
+
+def test_filmgrain(tmp_path):
+    """--add inserts the FGC SEI the reference inserts; synthesis decodes
+    the port's stream in the port and grains it as the reference does."""
+    p, _, rec = _port_stream(tmp_path, "f", n=1, seed=31)
+    got, want = _both(tmp_path, ["filmgrain", "-b", str(p), "--add",
+                                 "--seed", "7", "-o", ""])
+    assert got == want and tfg.find_fgc(got) == (6, 7, [(0, 255, 16)])
+    assert tfg.find_fgc(p.read_bytes()) is None
+    grained = tmp_path / "g.bin"
+    grained.write_bytes(got)
+    yp, yr = tmp_path / "port.yuv", tmp_path / "ref.yuv"
+    assert tcli.main(["filmgrain", "-b", str(grained), "-o", str(yp),
+                      "--device", "cpu"]) == 0
+    assert ref_main(["filmgrain", "-b", str(grained), "-o", str(yr)]) == 0
+    assert yp.read_bytes() == yr.read_bytes()
+    g = yuv.read_yuv(str(yp), 64, 64)
+    assert not np.array_equal(g[0][0], rec[0][0])
+    assert tcli.main(["filmgrain", "-b", str(p), "-o", str(yp),
+                      "--device", "cpu"]) == 1
+
+
+@pytest.mark.parametrize("htype", ["md5", "crc", "checksum"])
+def test_hash_types(tmp_path, htype):
+    """Each hash SEI type gives the reference CLI's bytes, verifies in the
+    port's decoder and fails it when corrupted."""
+    p, frames, rec = _port_stream(tmp_path, "h", n=1, seed=33,
+                                  extra=["--hash", htype])
+    src = tmp_path / "h.yuv"
+    ref = tmp_path / "r.bin"
+    assert ref_main(["encode", "-i", str(src), "--wdt", "64", "--hgt", "64",
+                     "-q", "32", "-b", str(ref), "--hash", htype]) == 0
+    assert p.read_bytes() == ref.read_bytes()
+    assert _same(_decode(p.read_bytes()), rec)
+    nals = tbs.read_annexb(p.read_bytes())
+    for n in nals:
+        if n.nal_type == tbs.NAL_SUFFIX_SEI:
+            n.payload = n.payload[:4] + bytes([n.payload[4] ^ 0xFF]) \
+                + n.payload[5:]
+    with pytest.raises(ValueError, match="hash"):
+        _decode(tbs.write_annexb(nals))
+
+
+def test_cfg_layered_parse(tmp_path):
+    """The copied cfg parser reads test_apps.py's layered files as the
+    reference's does."""
+    base = tmp_path / "base.cfg"
+    base.write_text("SourceWidth : 176   # comment\nSourceHeight: 144\n"
+                    "QP          : 37\nIntraPeriod : -1\nGOPSize     : 8\n"
+                    "EntropyCodingSyncEnabled : 1\n"
+                    "UnknownFutureOption : 42\n")
+    over = tmp_path / "seq.cfg"
+    over.write_text("QP : 27\nFramesToBeEncoded : 9\nLMCSEnable : 1\n")
+    got = tcfg.load_layered([str(base), str(over)])
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        ref_cfg.load_layered([str(base), str(over)]))
+    assert (got.width, got.height, got.qp, got.frames) == (176, 144, 27, 9)
+    assert got.intra_period == 0 and got.gop == 8 and got.wpp and got.lmcs
+
+
+def test_cfg_driven_encode(tmp_path):
+    """An encode driven by a cfg file (LMCS on, QP from the command line
+    over the file's) gives the reference CLI's bytes."""
+    frames = motion_frames(2, 64, 64, seed=84)
+    src = tmp_path / "in.yuv"
+    yuv.write_yuv(str(src), frames)
+    cfgf = tmp_path / "e.cfg"
+    outs = []
+    for tag, fn in (("port", tcli.main), ("ref", ref_main)):
+        out = tmp_path / f"{tag}.bin"
+        cfgf.write_text(f"InputFile : {src}\nBitstreamFile : {out}\n"
+                        "SourceWidth : 64\nSourceHeight : 64\nQP : 37\n"
+                        "IntraPeriod : -1\nLMCSEnable : 1\n")
+        args = ["encode", "-c", str(cfgf), "-q", "30"]
+        assert fn(args + (["--device", "cpu"] if tag == "port" else [])) \
+            == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    assert len(_decode(outs[0])) == 2
+
+
+# the options outside the slice: a flag where the CLI has one, else a cfg
+# file's lines (RDOQ, rate control and the tools the slice lacks have no
+# flag; the cfg hands them to EncoderConfig as they are)
+_OUTSIDE = {
+    "bit-depth": ["--bit-depth", "10"], "ctu": ["--ctu", "128"],
+    "tiles": ["--tiles", "2x1"], "subpics": ["--subpics", "2x1"],
+    "cfg-tiles": "TileColumns : 2", "rc-bpf": "RateControl : 1\n"
+    "TargetBitrate : 30000", "rdoq": "RDOQ : 0", "tskip": "TSM : 1",
+    "jccr": "JointCbCr : 1", "ibc": "IBC : 1", "plt": "PLT : 1",
+    "mctf": "TemporalFilter : 1"}
+
+
+@pytest.mark.parametrize("opt", list(_OUTSIDE))
+def test_options_outside_slice_raise(tmp_path, opt):
+    src = tmp_path / "in.yuv"
+    yuv.write_yuv(str(src), motion_frames(1, 64, 64, seed=1))
+    extra = _OUTSIDE[opt]
+    if isinstance(extra, str):
+        cfgf = tmp_path / "o.cfg"
+        cfgf.write_text(extra + "\n")
+        extra = ["-c", str(cfgf)]
+    with pytest.raises(ValueError, match="outside"):
+        tcli.main(["encode", "-i", str(src), "--wdt", "64", "--hgt", "64",
+                   "-b", str(tmp_path / "o.bin"), "--device", "cpu",
+                   *extra])

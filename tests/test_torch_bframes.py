@@ -220,7 +220,7 @@ def test_ra_cross_decode(case):
     assert tids == want and max(want) > 1
 
 
-@pytest.mark.parametrize("tool", ["ibc_enabled", "lmcs_enabled",
+@pytest.mark.parametrize("tool", ["ibc_enabled", "ts_enabled",
                                   "jccr_enabled"])
 def test_b_stream_with_tool_outside_slice_raises(tool):
     """A random-access stream whose SPS enables a tool outside the slice

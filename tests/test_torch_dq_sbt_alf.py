@@ -6,7 +6,6 @@ phase A with SBT and DQ, the ALF classification and filters; end to end
 against the spec model and, on one config with the three tools together,
 against the reference engine, cross-decoded with hashes verified; the
 CLI's three tool flags."""
-import dataclasses
 import functools
 
 import numpy as np
@@ -31,7 +30,6 @@ from vvctpu_torch.kernels import dq as tdq  # noqa: E402
 from vvctpu_torch.kernels import loopfilter as tlf  # noqa: E402
 from vvctpu_torch.kernels import transform as ttf  # noqa: E402
 from vvctpu_torch.pipeline import encoder as tenc  # noqa: E402
-from vvctpu_torch.pipeline import plan as tplan  # noqa: E402
 from vvctpu_torch.pipeline import recon as trecon  # noqa: E402
 from vvctpu_torch.spec import alf as talf  # noqa: E402
 from vvctpu_torch.spec import codec as tcodec  # noqa: E402
@@ -43,6 +41,7 @@ from test_inter_parity import motion_frames  # noqa: E402
 from test_sbt import half_residual_planes  # noqa: E402
 from test_torch_inter_tools import (H, W, _carries, _check_carry,  # noqa: E402
                                     _phase_a_rows, _refs6)
+from test_torch_ra_tools import _assert_equal_to_reference  # noqa: E402
 
 torch.set_num_threads(1)
 T = torch.as_tensor
@@ -402,25 +401,16 @@ def test_sbt_dq_alf_equals_reference_engine():
     FrameDecisions equal the reference engine's, with SBT and affine
     chosen and ALF on in the P picture (so the B picture predicts from
     an ALF-filtered DPB), and the port decodes the reference's stream
-    with the hashes verified.  The SBT index is compared on each leaf's
-    top-left granule, the only one the reference engine writes (the
-    port writes every granule of the leaf, as the spec model does)."""
+    with the hashes verified.  The SBT, MTS, LFNST and CCLM indices are
+    compared on each leaf's top-left granule, the only one the reference
+    engine writes (the port writes every granule of the leaf, as the
+    spec model does)."""
     _, jdata, jrec, jbits, want_dec = _jax_encode()
     data, rec, bits, got_dec = _port_encode()
     assert data == jdata and bits == jbits and _same(rec, jrec)
     assert len(got_dec) == len(want_dec) == 3
     for g, w in zip(got_dec, want_dec):
-        w = state.decisions_from_numpy(w)
-        for f in dataclasses.fields(w):
-            if isinstance(getattr(w, f.name), np.ndarray) \
-                    and f.name != "sbt8":
-                np.testing.assert_array_equal(getattr(g, f.name),
-                                              getattr(w, f.name), f.name)
-        op, xs, ys = tplan.leaf_plan(g, 64, 64)[:3]
-        origin = np.zeros_like(w.sbt8, bool)
-        origin[ys[op > 0] // 8, xs[op > 0] // 8] = True
-        np.testing.assert_array_equal(g.sbt8[origin], w.sbt8[origin])
-        assert not w.sbt8[~origin].any()
+        _assert_equal_to_reference(g, w, 64, 64)
     assert any((d.sbt8 > 0).any() for d in got_dec)
     assert any(d.aff8.any() for d in got_dec)
     # decoding order I, P, B: luma and both chroma ALF on in the P picture

@@ -17,7 +17,8 @@ COPIED = ["core/__init__.py", "core/rom.py", "core/tables_spec.py",
           "core/bitstream.py", "core/trace.py", "cabac/__init__.py",
           "cabac/binarize.py", "cabac/contexts.py", "cabac/engine.py",
           "cabac/native.py", "io/__init__.py", "io/yuv.py",
-          "io/streamtools.py", "pipeline/__init__.py", "pipeline/entropy.py",
+          "io/streamtools.py", "io/parcat.py", "io/filmgrain.py",
+          "io/cfg.py", "pipeline/__init__.py", "pipeline/entropy.py",
           "pipeline/plan.py", "kernels/__init__.py", "coding/__init__.py"] \
     + sorted(f"spec/{p.name}" for p in (REF / "spec").glob("*.py"))
 

@@ -68,11 +68,11 @@ def test_corrupt_stream_fails_hash():
 
 
 @pytest.mark.parametrize("kw", [dict(jccr=True), dict(tile_cols=2),
-                                dict(subpic_cols=2), dict(lmcs=True),
+                                dict(subpic_cols=2),
                                 dict(tskip=True), dict(mctf=True),
                                 dict(rc_bits_per_frame=1000),
                                 dict(ibc=True, intra_period=0),
-                                dict(ctu=128)])
+                                dict(ctu=128), dict(rdoq=False)])
 def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)
     with pytest.raises(ValueError, match="outside"):

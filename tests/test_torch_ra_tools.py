@@ -44,6 +44,31 @@ _REFINED = dict(qp=30, gpm=True, ciip=True, sbt=True, dmvr=True, bdof=True,
                 bcw=True, mmvd=True, **_RA)
 
 
+# tool indices that the reference engine writes at a leaf's top-left 8x8
+# granule only (the one the entropy coder reads); the port fills the
+# leaf, as the spec model does
+_AT_ORIGIN = ("mts8", "lfnst8", "cmode8", "sbt8")
+
+
+def _assert_equal_to_reference(g, w, h: int, wd: int):
+    """The port's FrameDecisions ``g`` equal the reference engine's ``w``:
+    every field on whole planes, the _AT_ORIGIN fields on each leaf's
+    top-left granule (and zero elsewhere in the reference's)."""
+    w = state.decisions_from_numpy(w)
+    for f in dataclasses.fields(w):
+        if isinstance(getattr(w, f.name), np.ndarray) \
+                and f.name not in _AT_ORIGIN:
+            np.testing.assert_array_equal(getattr(g, f.name),
+                                          getattr(w, f.name), f.name)
+    op, xs, ys = tplan.leaf_plan(g, h, wd)[:3]
+    origin = np.zeros_like(w.sbt8, bool)
+    origin[ys[op > 0] // 8, xs[op > 0] // 8] = True
+    for name in _AT_ORIGIN:
+        a, b = getattr(g, name), getattr(w, name)
+        np.testing.assert_array_equal(a[origin], b[origin], name)
+        assert not b[~origin].any(), name
+
+
 @functools.lru_cache(maxsize=None)
 def _refined_port():
     """The port's encode of test_gpm.py's refined-toolset config (frames,
@@ -59,10 +84,10 @@ def _refined_port():
 def test_refined_toolset_equals_reference_engine():
     """The port's bytes and FrameDecisions equal the reference engine's on
     the refined-toolset config, and the port decodes the reference's
-    stream with the hashes verified.  The SBT index is compared on each
-    leaf's top-left granule, the only one the reference engine writes
-    (the port writes every granule of the leaf, as the spec model
-    does)."""
+    stream with the hashes verified.  The SBT, MTS, LFNST and CCLM
+    indices are compared on each leaf's top-left granule, the only one
+    the reference engine writes (the port writes every granule of the
+    leaf, as the spec model does)."""
     frames, data, rec, bits, got_dec = _refined_port()
     want_dec = []
     jdata, jrec, jbits = jenc.encode_sequence(
@@ -70,17 +95,7 @@ def test_refined_toolset_equals_reference_engine():
     assert data == jdata and bits == jbits and _same(rec, jrec)
     assert len(got_dec) == len(want_dec) == 5
     for g, w in zip(got_dec, want_dec):
-        w = state.decisions_from_numpy(w)
-        for f in dataclasses.fields(w):
-            if isinstance(getattr(w, f.name), np.ndarray) \
-                    and f.name != "sbt8":
-                np.testing.assert_array_equal(getattr(g, f.name),
-                                              getattr(w, f.name), f.name)
-        op, xs, ys = tplan.leaf_plan(g, 64, 64)[:3]
-        origin = np.zeros_like(w.sbt8, bool)
-        origin[ys[op > 0] // 8, xs[op > 0] // 8] = True
-        np.testing.assert_array_equal(g.sbt8[origin], w.sbt8[origin])
-        assert not w.sbt8[~origin].any()
+        _assert_equal_to_reference(g, w, 64, 64)
     # BI with DMVR/BDOF, BCW weights and GPM are all on the path
     assert any((d.gpm8 > 0).any() for d in got_dec)
     assert any(((d.dir8 == 2) & (d.inter8 > 0)).any() for d in got_dec)
@@ -141,8 +156,7 @@ def test_tool_config_equals_spec_model(case):
 
 
 @pytest.mark.parametrize("kw", [dict(mctf=True), dict(subpic_rows=2),
-                                dict(tile_rows=2), dict(mtt=True, lmcs=True),
-                                dict(lmcs=True),
+                                dict(tile_rows=2),
                                 dict(ibc=True), dict(plt=True),
                                 dict(tskip=True), dict(jccr=True),
                                 dict(tile_cols=2), dict(ctu=128),
@@ -154,19 +168,18 @@ def test_tools_outside_slice_still_raise(kw):
 
 @pytest.mark.parametrize("field,value", [
     ("log2_ctu", 5), ("bit_depth", 12), ("tile_rows", None),
-    ("lmcs_enabled", True),
     ("ibc_enabled", True), ("plt_enabled", True), ("ts_enabled", True),
     ("jccr_enabled", True), ("log2_ctu", 7), ("bit_depth", 10),
     ("tiles", None)])
 def test_stream_outside_slice_still_raises(field, value):
     """The decoder's SPS/PPS check refuses what the slice leaves out and
-    accepts the inter and intra toolsets, SBT, DQ, ALF and the multi-type
-    tree."""
+    accepts the inter and intra toolsets, SBT, DQ, ALF, the multi-type
+    tree and LMCS."""
     from vvctpu_torch.spec import hls
     tools = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
                  cclm=True, mmvd=True, dmvr=True, bdof=True, bcw=True,
                  gpm=True, affine=True, amvr=True, smvd=True, ciip=True,
-                 sbt=True, dq=True, alf=True, mtt=True, tt=True)
+                 sbt=True, dq=True, alf=True, mtt=True, tt=True, lmcs=True)
     sps = tseq.EncoderConfig(intra_period=0, gop=4, **tools).make_sps(64, 64)
     tenc._check_sps(sps, hls.PPS())
     pps = hls.PPS()

@@ -1,22 +1,27 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
 the PyTorch engine (all-intra, low-delay P or random access, with the
-multi-type tree, VVC's intra and inter toolsets, dependent quantization
-and ALF).
+multi-type tree, VVC's intra and inter toolsets, dependent quantization,
+LMCS and ALF), and the reference's stream tools (parcat, sei-remove,
+extract, merge, subpic-extract, subpic-merge, filmgrain, info).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
-        --mts --lfnst --isp --mip --mrl --cclm -f 3 -b ai.bin
+        --mts --lfnst --isp --mip --mrl --cclm --lmcs -f 3 -b ai.bin
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 4 --wpp --mts --lfnst --cclm --mip --mmvd --bcw \\
         --amvr --smvd --ciip --gpm --affine --dmvr --bdof --sbt --dq --alf \\
         -f 5 -b ra.bin
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
-        --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq -f 3 -b mtt.bin
+        --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq --lmcs -f 3 -b mtt.bin
+    python -m vvctpu_torch encode -c encoder_randomaccess.cfg -c seq.cfg
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
+    python -m vvctpu_torch info -b out.bin
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
-device (CUDA by default).
+device (CUDA by default).  Options outside the port's slice (10-bit, CTU
+128, tiles, subpictures; from a cfg file also RDOQ off, rate control, TS,
+JCCR, IBC, palette and MCTF) are refused with the encoder's ValueError.
 """
 from __future__ import annotations
 
@@ -46,7 +51,35 @@ _TOOLS = {
     "alf": "adaptive loop filter (luma Wiener, CTU flags)",
     "mtt": "multi-type tree (binary splits at 16/32)",
     "tt": "ternary splits at 32 nodes (requires --mtt)",
+    "lmcs": "LMCS luma mapping (reshaper)",
 }
+_HASH = {"md5": 0, "crc": 1, "checksum": 2}
+
+
+def _apply_cfg(args, defaults) -> dict:
+    """Fill the encode arguments from the layered cfg files ``args.cfg``,
+    as the reference CLI does: a file's value applies where the command
+    line left the option at its default.  Returns the files' options that
+    have no flag here (RDOQ, rate control and the tools outside the
+    slice), for EncoderConfig as they are: check_config refuses what the
+    slice lacks."""
+    from .io.cfg import load_layered, rc_bits_per_frame
+    fc = load_layered(args.cfg)
+    args.input = args.input or fc.input_file
+    args.bitstream = args.bitstream or fc.bitstream_file
+    args.recon = args.recon or (fc.recon_file or None)
+    args.wdt = args.wdt or fc.width
+    args.hgt = args.hgt or fc.height
+    if args.frames is None:
+        args.frames = fc.frames
+    for a in ("qp", "intra_period", "gop", "bit_depth", "wpp", *_TOOLS):
+        if defaults[a] == getattr(args, a):
+            setattr(args, a, getattr(fc, a))
+    if args.tiles == defaults["tiles"]:
+        args.tiles = f"{fc.tile_cols}x{fc.tile_rows}"
+    return dict(rdoq=fc.rdoq, rc_bits_per_frame=rc_bits_per_frame(fc),
+                tskip=fc.tskip, jccr=fc.jccr, ibc=fc.ibc, plt=fc.plt,
+                mctf=fc.mctf)
 
 
 def _enc(args) -> int:
@@ -54,13 +87,24 @@ def _enc(args) -> int:
     from .pipeline import encoder as tenc
     from .spec import hls
     from .spec import sequence as seq
-    frames = yuv.read_yuv(args.input, args.wdt, args.hgt, args.frames)
+    if not (args.input and args.bitstream and args.wdt and args.hgt):
+        print("missing input/bitstream/wdt/hgt (flags or cfg)",
+              file=sys.stderr)
+        return 2
+    tc, tr = (int(v) for v in args.tiles.split("x"))
+    sc, sr = (int(v) for v in args.subpics.split("x"))
+    cfg = seq.EncoderConfig(
+        qp=args.qp, bit_depth=args.bit_depth, ctu=args.ctu,
+        intra_period=args.intra_period, gop=args.gop, wpp=args.wpp,
+        tile_cols=tc, tile_rows=tr, subpic_cols=sc, subpic_rows=sr,
+        hash_type=_HASH[args.hash], **args.from_cfg,
+        **{t: getattr(args, t) for t in _TOOLS})
+    tenc.check_config(cfg)
+    frames = yuv.read_yuv(args.input, args.wdt, args.hgt, args.frames,
+                          args.bit_depth)
     if not frames:
         print("no frames read", file=sys.stderr)
         return 1
-    cfg = seq.EncoderConfig(qp=args.qp, intra_period=args.intra_period,
-                            gop=args.gop, wpp=args.wpp,
-                            **{t: getattr(args, t) for t in _TOOLS})
     t0 = time.time()
     data, recons, bits = tenc.encode_sequence(frames, cfg,
                                               device=args.device)
@@ -71,13 +115,14 @@ def _enc(args) -> int:
                                           args.gop)}
     letter = {hls.SLICE_I: "I", hls.SLICE_P: "P", hls.SLICE_B: "B"}
     for poc, planes in enumerate(frames):
-        p = [seq.psnr(planes[c], recons[poc][c]) for c in range(3)]
+        p = [seq.psnr(planes[c], recons[poc][c], args.bit_depth)
+             for c in range(3)]
         _, stype, _, qpd = plan[poc]
         print(f"POC {poc:4d} {letter[stype]}  QP {args.qp + qpd:2d}  "
               f"{bits[poc]:8d} bits  "
               f"Y {p[0]:6.3f} dB  U {p[1]:6.3f} dB  V {p[2]:6.3f} dB")
     if args.recon:
-        yuv.write_yuv(args.recon, recons)
+        yuv.write_yuv(args.recon, recons, args.bit_depth)
     n = len(frames)
     total = sum(bits)
     print(f"SUMMARY: {n} frames, {total} bits, {total / n:.0f} bits/frame, "
@@ -102,17 +147,191 @@ def _dec(args) -> int:
     return 0
 
 
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _write(path, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _parcat(args) -> int:
+    from .io.parcat import parcat
+    out = parcat([_read(p) for p in args.inputs])
+    _write(args.output, out)
+    print(f"parcat: {len(args.inputs)} segments -> {args.output} "
+          f"({len(out)} bytes)")
+    return 0
+
+
+def _sei_remove(args) -> int:
+    from .io.streamtools import remove_sei
+    data = _read(args.bitstream)
+    out = remove_sei(data, keep_hash=args.keep_hash)
+    _write(args.output, out)
+    print(f"sei-remove: {len(data)} -> {len(out)} bytes")
+    return 0
+
+
+def _extract(args) -> int:
+    from .io.streamtools import extract_layer, extract_sublayer
+    data = _read(args.bitstream)
+    out = (extract_layer(data, args.layer) if args.layer is not None
+           else extract_sublayer(data, args.tid))
+    _write(args.output, out)
+    print(f"extract: {len(data)} -> {len(out)} bytes")
+    return 0
+
+
+def _merge(args) -> int:
+    from .io.streamtools import merge_layers
+    out = merge_layers([_read(p) for p in args.inputs])
+    _write(args.output, out)
+    print(f"merge: {len(args.inputs)} layers -> {args.output} "
+          f"({len(out)} bytes)")
+    return 0
+
+
+def _subpic_extract(args) -> int:
+    from .io.streamtools import subpic_extract
+    data = _read(args.bitstream)
+    out = subpic_extract(data, args.idx)
+    _write(args.output, out)
+    print(f"subpic-extract: {len(data)} -> {len(out)} bytes")
+    return 0
+
+
+def _subpic_merge(args) -> int:
+    from .io.streamtools import subpic_merge
+    cols, rows = (int(v) for v in args.grid.split("x"))
+    out = subpic_merge([_read(p) for p in args.inputs], cols, rows)
+    _write(args.output, out)
+    print(f"subpic-merge: {len(args.inputs)} subpics -> {args.output} "
+          f"({len(out)} bytes)")
+    return 0
+
+
+def _filmgrain(args) -> int:
+    from .io import filmgrain as fg
+    data = _read(args.bitstream)
+    if args.add:
+        _write(args.output, fg.add_fgc(data, args.scale, args.seed,
+                                       [(0, 255, args.gain)]))
+        print(f"filmgrain: FGC SEI added -> {args.output}")
+        return 0
+    params = fg.find_fgc(data)
+    if params is None:
+        print("no film-grain SEI in stream", file=sys.stderr)
+        return 1
+    from .io import yuv
+    from .pipeline import encoder as tenc
+    frames, sps = tenc.decode_sequence(data, check_hash=True,
+                                       device=args.device)
+    yuv.write_yuv(args.output, fg.synthesize(frames, params, sps.bit_depth),
+                  sps.bit_depth)
+    print(f"filmgrain: {len(frames)} frames grained -> {args.output}")
+    return 0
+
+
+def _info(args) -> int:
+    from .io.streamtools import stream_info
+    data = _read(args.bitstream)
+    rows = stream_info(data)
+    for i, r in enumerate(rows):
+        print(f"{i:4d}  {r['type']:12s} layer {r['layer']} tid {r['tid']} "
+              f"{r['bytes']:8d} bytes")
+    print(f"total: {len(rows)} NAL units, {len(data)} bytes")
+    return 0
+
+
+def _device_arg(p) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+
+
+def _tool_parsers(sub) -> None:
+    """The reference CLI's stream tools, option for option."""
+    pc = sub.add_parser("parcat",
+                        help="concatenate segment bitstreams (Parcat)")
+    pc.add_argument("inputs", nargs="+")
+    pc.add_argument("-o", "--output", required=True)
+    pc.set_defaults(fn=_parcat)
+    sr = sub.add_parser("sei-remove",
+                        help="strip SEI NAL units (SEIRemovalApp)")
+    sr.add_argument("-b", "--bitstream", required=True)
+    sr.add_argument("-o", "--output", required=True)
+    sr.add_argument("--keep-hash", action="store_true",
+                    help="keep decoded-picture-hash suffix SEIs")
+    sr.set_defaults(fn=_sei_remove)
+    ex = sub.add_parser("extract",
+                        help="extract temporal sublayer or layer "
+                             "(BitstreamExtractorApp)")
+    ex.add_argument("-b", "--bitstream", required=True)
+    ex.add_argument("-o", "--output", required=True)
+    ex.add_argument("--tid", type=int, default=0,
+                    help="max temporal_id to keep (default 0 = anchors)")
+    ex.add_argument("--layer", type=int, default=None,
+                    help="extract this nuh_layer_id from a merged stream")
+    ex.set_defaults(fn=_extract)
+    mg = sub.add_parser("merge",
+                        help="merge streams into layers (StreamMergeApp)")
+    mg.add_argument("inputs", nargs="+")
+    mg.add_argument("-o", "--output", required=True)
+    mg.set_defaults(fn=_merge)
+    se = sub.add_parser("subpic-extract",
+                        help="extract one subpicture as a standalone "
+                        "stream (BitstreamExtractorApp subpic role)")
+    se.add_argument("-b", "--bitstream", required=True)
+    se.add_argument("-o", "--output", required=True)
+    se.add_argument("--idx", type=int, required=True,
+                    help="subpicture index (raster order)")
+    se.set_defaults(fn=_subpic_extract)
+    sm = sub.add_parser("subpic-merge",
+                        help="merge per-subpicture streams into one "
+                        "(SubpicMergeApp role)")
+    sm.add_argument("inputs", nargs="+")
+    sm.add_argument("-o", "--output", required=True)
+    sm.add_argument("--grid", required=True, help="CxR grid")
+    sm.set_defaults(fn=_subpic_merge)
+    fg = sub.add_parser("filmgrain",
+                        help="film-grain SEI tool (SEIFilmGrainApp role): "
+                        "--add inserts an FGC SEI; default decodes and "
+                        "synthesizes grain to YUV")
+    fg.add_argument("-b", "--bitstream", required=True)
+    fg.add_argument("-o", "--output", required=True)
+    fg.add_argument("--add", action="store_true",
+                    help="insert FGC SEI instead of synthesizing")
+    fg.add_argument("--scale", type=int, default=6,
+                    help="log2 grain scale divisor")
+    fg.add_argument("--seed", type=int, default=1)
+    fg.add_argument("--gain", type=int, default=16)
+    _device_arg(fg)
+    fg.set_defaults(fn=_filmgrain)
+    nf = sub.add_parser("info", help="list NAL units in a stream")
+    nf.add_argument("-b", "--bitstream", required=True)
+    nf.set_defaults(fn=_info)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="vvctpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     e = sub.add_parser("encode", help="encode raw YUV to Annex-B bitstream")
-    e.add_argument("-i", "--input", required=True, help="input .yuv (I420)")
-    e.add_argument("-b", "--bitstream", required=True, help="output .bin")
+    e.add_argument("-c", "--cfg", action="append", default=[],
+                   help="VTM-style cfg file (repeatable; later wins)")
+    e.add_argument("-i", "--input", help="input .yuv (I420)")
+    e.add_argument("-b", "--bitstream", help="output .bin")
     e.add_argument("-o", "--recon", help="optional recon .yuv")
-    e.add_argument("--wdt", type=int, required=True, help="source width")
-    e.add_argument("--hgt", type=int, required=True, help="source height")
+    e.add_argument("--wdt", type=int, help="source width")
+    e.add_argument("--hgt", type=int, help="source height")
+    e.add_argument("--hash", default="md5", choices=tuple(_HASH),
+                   help="decoded-picture-hash SEI type")
     e.add_argument("-q", "--qp", type=int, default=32)
     e.add_argument("-f", "--frames", type=int, default=None)
+    e.add_argument("--bit-depth", type=int, default=8, choices=(8, 10))
+    e.add_argument("--ctu", type=int, default=64, choices=(64, 128),
+                   help="CTU size")
     e.add_argument("--ip", "--intra-period", dest="intra_period", type=int,
                    default=1, help="1 = all-intra, 0 = first frame only, "
                    "N = every N frames")
@@ -123,19 +342,26 @@ def main(argv=None) -> int:
                    help="wavefront entropy lanes (one per CTU row)")
     for tool, text in _TOOLS.items():
         e.add_argument(f"--{tool}", action="store_true", help=text)
-    e.add_argument("--device", default=None,
-                   help="torch device (default cuda)")
+    e.add_argument("--tiles", default="1x1", help="tile grid CxR")
+    e.add_argument("--subpics", default="1x1", help="subpicture grid CxR")
+    _device_arg(e)
+    e.set_defaults(fn=_enc)
     d = sub.add_parser("decode", help="decode Annex-B bitstream to YUV")
     d.add_argument("-b", "--bitstream", required=True)
     d.add_argument("-o", "--output", required=True)
     d.add_argument("--no-hash", action="store_true",
                    help="skip decoded-picture-hash verification")
-    d.add_argument("--device", default=None,
-                   help="torch device (default cuda)")
+    _device_arg(d)
+    d.set_defaults(fn=_dec)
+    _tool_parsers(sub)
     args = ap.parse_args(argv)
-    if args.cmd == "encode" and args.tt and not args.mtt:
-        e.error("--tt requires --mtt")
-    return _enc(args) if args.cmd == "encode" else _dec(args)
+    if args.cmd == "encode":
+        args.from_cfg = (_apply_cfg(args, {a: e.get_default(a)
+                                           for a in vars(args)})
+                         if args.cfg else {})
+        if args.tt and not args.mtt:
+            e.error("--tt requires --mtt")
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -295,15 +295,24 @@ def _sao_decide_comp_j(org, rec, lam: int, n_y: int, n_x: int, cs: int,
     return chosen_t, offs_sel, bp
 
 
+def inverse_map(y, inv_lut):
+    """LMCS inverse mapping of a luma plane through its frame's LUT."""
+    return torch.as_tensor(inv_lut, device=y.device)[y.long()]
+
+
 def finish_frame_j(planes, decisions, qp: int, lam: int, orig_planes,
-                   ctu: int = 64, bd: int = 8, deblock_on: bool = True,
-                   sao_on: bool = True):
-    """Post-reconstruction chain on the device: deblock, then SAO decide
-    and apply.  Returns (rec_y, rec_cb, rec_cr, sao_type (nY, nX, 3),
-    sao_offs (nY, nX, 3, 4), sao_bp (nY, nX, 3)) as device tensors."""
+                   inv_lut=None, ctu: int = 64, bd: int = 8,
+                   deblock_on: bool = True, sao_on: bool = True):
+    """Post-reconstruction chain on the device: with LMCS the inverse
+    mapping of the luma through ``inv_lut`` (2^bd entries), then deblock,
+    then SAO decide (against the unmapped ``orig_planes``) and apply.
+    Returns (rec_y, rec_cb, rec_cr, sao_type (nY, nX, 3), sao_offs (nY,
+    nX, 3, 4), sao_bp (nY, nX, 3)) as device tensors."""
     y, cb, cr = (p.to(torch.int32) for p in planes)
     h, w = y.shape
     dev = y.device
+    if inv_lut is not None:
+        y = inverse_map(y, inv_lut)
     if deblock_on:
         ver, hor = _masks(decisions, h, w, dev)
         y, cb, cr = _deblock(y, cb, cr, ver, hor, qp, bd)

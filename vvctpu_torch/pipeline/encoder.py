@@ -6,13 +6,15 @@ one tile, CTU 64, the default toolset plus the multi-type tree (BT and
 TT splits) and VVC's intra toolset (MTS, LFNST, ISP, MIP, MRL, CCLM) in
 every slice type and its inter toolset (BCW, CIIP, GPM, affine with
 PROF, DMVR, BDOF, MMVD, AMVR, SMVD, SBT; DMVR and BDOF in BI-symmetric
-pictures only), dependent quantization, and ALF with CC-ALF (parameters
-derived on the host, filters on the device).  All-intra frames are
-reconstructed in groups of up to eight per frame-batched wave; one
-temporal layer's B frames are decided frame by frame and reconstructed
-in one frame-batched wave.  The bitstreams are byte-identical to the
-reference engine's and to the spec model's.  Anything outside the slice
-raises.
+pictures only), dependent quantization, LMCS (one model per frame,
+derived on the host from the source luma and signalled in its slice
+header) and ALF with CC-ALF (parameters derived on the host, filters on
+the device).  All-intra frames are reconstructed in groups of up to
+eight per frame-batched wave; one temporal layer's B frames are decided
+frame by frame and reconstructed in one frame-batched wave, each frame
+with its own LMCS model.  The bitstreams are byte-identical to the spec
+model's and, where the reference engine agrees with it, to the
+reference engine's.  Anything outside the slice raises.
 """
 from __future__ import annotations
 
@@ -32,13 +34,14 @@ from ..kernels import loopfilter as lfk
 from ..spec import alf as salf
 from ..spec import codec as scodec
 from ..spec import hls
+from ..spec import lmcs as slmcs
 from ..spec import sequence as sseq
 from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
 # EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("tskip", "jccr", "ibc", "plt", "lmcs", "mctf")
-_SPS_OFF = ("ts", "jccr", "ibc", "plt", "lmcs")
+_OFF_TOOLS = ("tskip", "jccr", "ibc", "plt", "mctf")
+_SPS_OFF = ("ts", "jccr", "ibc", "plt")
 # frames per frame-batched wave
 _GROUP = 8
 
@@ -52,14 +55,17 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
         bad.append("subpictures")
     if cfg.rc_bits_per_frame:
         bad.append("rate control")
+    if not cfg.rdoq:
+        bad.append("rdoq=False")
     if cfg.ctu != 64:
         bad.append(f"ctu={cfg.ctu}")
     if cfg.bit_depth != 8:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
         raise ValueError("outside the PyTorch port's slice (one tile, CTU "
-                         "64, 8-bit; no IBC, palette, TS, JCCR, LMCS or "
-                         "MCTF): " + ", ".join(bad))
+                         "64, 8-bit, RDOQ on; no IBC, palette, TS, JCCR or "
+                         "MCTF): "
+                         + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -95,16 +101,25 @@ def _decide_tools(sps: hls.SPS, stype) -> dict:
     return kw
 
 
-def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device):
+def _lmcs_luts(cw, bd: int):
+    """(forward, inverse, CRS) LUTs of an LMCS codeword model."""
+    fwd, inv = slmcs.build_luts(cw, bd)
+    return fwd, inv, slmcs.build_crs_lut(cw, bd)
+
+
+def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device, luts=None):
     """frame_wave_batch input of one frame: slot tables, the planes on the
     device and, for inter frames, the phase-A rows (per square size and
     per rect shape of the multi-type tree) and the padded device
-    reference planes (three per list)."""
+    reference planes (three per list); with LMCS (``luts`` from
+    _lmcs_luts) the frame's forward and CRS LUTs."""
     def up(p):
         return torch.as_tensor(np.ascontiguousarray(p, np.int32),
                                device=device)
 
     fr = dict(py=up(py), pcb=up(pcb), pcr=up(pcr))
+    if luts is not None:
+        fr["fwd_lut"], fr["crs_lut"] = up(luts[0]), up(luts[2])
     if ref_pocs:
         fr["slots"], fr["inter"] = recon.make_slots_split(
             dec, sps.height, sps.width, 1 << sps.log2_ctu)
@@ -225,12 +240,14 @@ def _b_group(plan, i, all_intra: bool = False):
 def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
                   pool, stage_times, dev):
     """Encode plan entries that share slice type and QP and reference no
-    picture among themselves: the decisions of every frame, one
-    frame-batched wave, then each frame's loop filters and entropy.
-    ``dpb`` is None in all-intra.  Returns the frames' decisions."""
+    picture among themselves: the decisions of every frame (on the
+    unmapped source), with LMCS each frame's model from its source luma,
+    one frame-batched wave (on the mapped source luma), then each
+    frame's loop filters and entropy.  ``dpb`` is None in all-intra.
+    Returns the frames' decisions."""
     qpd = grp[0][3]
     qp = cfg.qp + qpd
-    decs, padded_l, frs = [], [], []
+    decs, padded_l, frs, models = [], [], [], []
     for poc, stype, ref_pocs, _ in grp:
         padded = scodec.pad_planes(frames[poc], sps)
         # the ext search runs when a reference is more than a frame away
@@ -250,7 +267,15 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
                     cfg.bit_depth, device=dev, me_ext=me_ext, **tools)
         decs.append(dec)
         padded_l.append(padded)
-        frs.append(_wave_frame(sps, dec, *padded, dpb, ref_pocs, dev))
+        cw, luts, py = (), None, padded[0]
+        if sps.lmcs_enabled:
+            with _stage("lmcs", stage_times):
+                cw = slmcs.derive_model(padded[0], cfg.bit_depth)
+                luts = _lmcs_luts(cw, cfg.bit_depth)
+                py = luts[0][padded[0]]
+        models.append((cw, None if luts is None else luts[1]))
+        frs.append(_wave_frame(sps, dec, py, padded[1], padded[2], dpb,
+                               ref_pocs, dev, luts))
     with _stage("wave", stage_times, dev):
         outs = wave.frame_wave_batch(
             frs, frame_w=sps.width, frame_h=sps.height,
@@ -261,29 +286,31 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
     # job starts on the worker thread, which would slow their many small
     # launches on this one (1080p all-intra on an H100: 9 s against 0.1 s)
     chains = [_filter_frame(cfg, sps, dec, padded, e[0], qp, out, dpb,
-                            stage_times, dev)
-              for e, dec, padded, out in zip(grp, decs, padded_l, outs)]
-    for (poc, stype, ref_pocs, _), dec, out, (chain, alf_params) in zip(
-            grp, decs, outs, chains):
+                            stage_times, dev, inv_lut)
+              for e, dec, padded, out, (_, inv_lut) in zip(
+                  grp, decs, padded_l, outs, models)]
+    for (poc, stype, ref_pocs, _), dec, out, (chain, alf_params), (cw, _) \
+            in zip(grp, decs, outs, chains, models):
         _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, out,
-                    chain, alf_params, mot, nals, recons, bits, pool,
+                    chain, alf_params, cw, mot, nals, recons, bits, pool,
                     stage_times, dev)
     return decs
 
 
 def _filter_frame(cfg, sps, dec, padded, poc, qp, scan_out, dpb,
-                  stage_times, dev):
-    """Loop filters of one reconstructed frame on the device: deblock and
-    SAO, then, with ALF, one fetch of the planes, the ALF parameters
-    derived on the host and the filter applied on the device; with a
-    ``dpb``, its padded reference goes in.  Returns (the filter chain's
-    device outputs (planes and SAO parameters), ALF parameters or
-    None)."""
+                  stage_times, dev, inv_lut=None):
+    """Loop filters of one reconstructed frame on the device: with LMCS
+    the luma's inverse mapping (``inv_lut``), deblock and SAO, then, with
+    ALF, one fetch of the planes, the ALF parameters derived on the host
+    (against the unmapped source ``padded``) and the filter applied on
+    the device; with a ``dpb``, its padded reference goes in.  Returns
+    (the filter chain's device outputs (planes and SAO parameters), ALF
+    parameters or None)."""
     lam_sao = int(round(0.57 * (2.0 ** ((qp - 12) / 3.0)) * 256.0))
     with _stage("loopfilter", stage_times, dev):
         chain = lfk.finish_frame_j(
-            list(scan_out[:3]), dec, qp, lam_sao, padded, ctu=cfg.ctu,
-            bd=cfg.bit_depth, deblock_on=sps.deblock_enabled,
+            list(scan_out[:3]), dec, qp, lam_sao, padded, inv_lut=inv_lut,
+            ctu=cfg.ctu, bd=cfg.bit_depth, deblock_on=sps.deblock_enabled,
             sao_on=sps.sao_enabled)
     alf_params = None
     if sps.alf_enabled:
@@ -299,11 +326,12 @@ def _filter_frame(cfg, sps, dec, padded, poc, qp, scan_out, dpb,
 
 
 def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
-                chain, alf_params, mot, nals, recons, bits, pool,
+                chain, alf_params, lmcs_cw, mot, nals, recons, bits, pool,
                 stage_times, dev):
     """Tail of one frame: one fetch of its levels, tool planes and filter
     outputs, the chosen tool indices into ``dec``, then host entropy and
-    NAL units (on the pool's worker when there is one)."""
+    NAL units (on the pool's worker when there is one); ``lmcs_cw`` is
+    the frame's LMCS model for its slice header (() without LMCS)."""
     is_intra = stype == hls.SLICE_I
     with _stage("fetch", stage_times, dev):
         (ly, lcb, lcr, mtsp, lfnstp, cmodep, sbtp, cy, ccb, ccr, sao_t,
@@ -317,7 +345,7 @@ def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
     if sps.sbt_enabled:
         dec.sbt8[:] = sbtp.astype(np.uint8)
     sh = hls.SliceHeader(poc=poc, slice_type=stype, qp_delta=qpd,
-                         ref_pocs=ref_pocs, lmcs_cw=())
+                         ref_pocs=ref_pocs, lmcs_cw=lmcs_cw)
     rec = [cy, ccb, ccr]
     sao_params = None
     if sps.sao_enabled:
@@ -383,12 +411,14 @@ def decode_sequence(data: bytes, check_hash: bool = True, device=None,
 
 def _dec_group(entries, i, cap: int = 8):
     """entries[i:j]: the longest run (at most ``cap``) with the same slice
-    type, BI symmetry, QP delta and reference count in which no entry
-    references another (twin of the reference decoder's grouping)."""
+    type, BI symmetry, QP delta, reference count and LMCS use in which no
+    entry references another (twin of the reference decoder's grouping;
+    the frames of a group may carry different LMCS models)."""
     def gkey(e):
         sh = e["sh"]
         return (sh.slice_type != hls.SLICE_I, scodec.bi_sym(sh),
-                sh.qp_delta, len(sh.ref_pocs), sh.pps_id)
+                sh.qp_delta, len(sh.ref_pocs), bool(sh.lmcs_cw),
+                sh.pps_id)
 
     k0 = gkey(entries[i])
     grp = [entries[i]]
@@ -431,10 +461,13 @@ def _parse(data: bytes, check_hash: bool):
     return sps, pps_map, entries
 
 
-def _dec_filters(e, sps, rec, qp, dpb, stage_times, dev):
-    """Loop filters on the device and the DPB refresh; returns the
-    filtered device planes without fetching them."""
+def _dec_filters(e, sps, rec, qp, dpb, stage_times, dev, inv_lut=None):
+    """Loop filters on the device (after the LMCS inverse mapping of the
+    luma through ``inv_lut``, when the slice has a model) and the DPB
+    refresh; returns the filtered device planes without fetching them."""
     with _stage("loopfilter", stage_times, dev):
+        if inv_lut is not None:
+            rec = [lfk.inverse_map(rec[0], inv_lut)] + list(rec[1:])
         if sps.deblock_enabled:
             rec = lfk.deblock_frame_j(rec, e["dec"], qp, sps.bit_depth)
         if e["sao"] is not None:
@@ -461,17 +494,21 @@ def _dec_fetch(e, rec, sps, frames, check_hash, stage_times, dev):
 
 
 def _decode_group(grp, sps, pps_map, dpb, device, stage_times):
-    """Reconstruct a group of parsed frames in one frame-batched wave and
-    queue their loop filters; returns [(entry, filtered device planes)]."""
+    """Reconstruct a group of parsed frames in one frame-batched wave
+    (each with the LMCS model of its slice header) and queue their loop
+    filters; returns [(entry, filtered device planes)]."""
     sh = grp[0]["sh"]
     qp = pps_map[sh.pps_id].init_qp + sh.qp_delta
+    luts = [_lmcs_luts(e["sh"].lmcs_cw, sps.bit_depth)
+            if e["sh"].lmcs_cw else None for e in grp]
     frs = [_wave_frame(sps, e["dec"], *e["levels"], dpb,
                        e["sh"].ref_pocs if sh.slice_type != hls.SLICE_I
-                       else (), device) for e in grp]
+                       else (), device, lt) for e, lt in zip(grp, luts)]
     with _stage("wave", stage_times, device):
         outs = wave.frame_wave_batch(
             frs, frame_w=sps.width, frame_h=sps.height,
             log2_ctu=sps.log2_ctu, qp=qp, bd=sps.bit_depth, encode=False,
             **_wave_tools(sps, scodec.bi_sym(sh)))
     return [(e, _dec_filters(e, sps, list(out[:3]), qp, dpb, stage_times,
-                             device)) for e, out in zip(grp, outs)]
+                             device, None if lt is None else lt[1]))
+            for e, out, lt in zip(grp, outs, luts)]

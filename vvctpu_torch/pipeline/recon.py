@@ -37,40 +37,86 @@ def _gather(plane, f, xs, ys, w: int, h: int):
     return plane[_index(f, xs, ys, w, h)]
 
 
+def crs_scale(crs_lut, f, rec_y, w: int, h: int, reps: int = 1):
+    """LMCS chroma residual scaling: each leaf's scale (1.11 fixed point),
+    the slope of its frame's CRS LUT at the average of the leaf's
+    reconstructed mapped luma (twin of the spec model's _crs_scale).
+    crs_lut: (F, 2^bd) per-frame LUTs or None (no LMCS, returns None);
+    rec_y: (B, h, w) luma recon of the leaves of frames f.  Returns the
+    (reps * B,) scales, the B leaves' repeated for batches that stack
+    Cb and Cr rows (reps=2)."""
+    if crs_lut is None:
+        return None
+    avg = rec_y.sum((-2, -1), dtype=torch.int32) >> (
+        (w.bit_length() - 1) + (h.bit_length() - 1))
+    return crs_lut[f.long(), avg.long()].repeat(reps)
+
+
+def fwd_map(fwd_lut, f, pred_y):
+    """LMCS forward mapping of a batch's luma predictions through each
+    row's frame LUT (fwd_lut: (F, 2^bd), or None for no LMCS)."""
+    if fwd_lut is None:
+        return pred_y
+    return fwd_lut[f.long()[:, None, None], pred_y.long()]
+
+
+def crs_fwd(resi, sc):
+    """Forward chroma residual scaling (encoder): (resi << 11) // sc per
+    row, a floor division as in the spec model's crs_fwd."""
+    return torch.div(resi * (1 << 11), sc[:, None, None],
+                     rounding_mode="floor")
+
+
+def crs_inv(r, sc):
+    """Inverse chroma residual scaling: (r * sc) >> 11 per row."""
+    return (r * sc[:, None, None]) >> 11
+
+
 def _component(src, pred, f, xs, ys, w: int, h: int, qp: int, bd: int,
                encode: bool, rdoq: bool = False, lam_rd: int = 0,
-               dq: bool = False):
+               dq: bool = False, crs_sc=None):
     """Residual + recon of a batch of (h, w) component blocks with the
     given predictions (twin of recon._component and wave._comp_local).
 
     src: source planes when encoding, parsed level planes when decoding,
-    (F, H, W).  Returns (rec, lev), both (B, h, w) int32."""
+    (F, H, W); crs_sc: None, or the (B,) LMCS chroma residual scales that
+    divide the residual before the transform and multiply it after.
+    Returns (rec, lev), both (B, h, w) int32."""
     if encode:
         resi = _gather(src, f, xs, ys, w, h).to(torch.int32) - pred
+        if crs_sc is not None:
+            resi = crs_fwd(resi, crs_sc)
         coef = transform.forward_transform(resi, h, w, bd=bd)
         lev = transform.quantize(coef, h, w, qp, intra=True, bd=bd,
                                  rdoq=rdoq, lam_rd=lam_rd, dq=dq)
     else:
         lev = _gather(src, f, xs, ys, w, h)
-    rec = transform.reconstruct(pred, lev, h, w, qp, bd=bd, dq=dq)
-    return rec, lev
+    r = transform.inverse_transform(
+        transform.dequantize(lev, h, w, qp, bd, dq=dq), h, w, bd=bd)
+    if crs_sc is not None:
+        r = crs_inv(r, crs_sc)
+    return (pred.to(torch.int32) + r).clamp(0, (1 << bd) - 1), lev
 
 
 def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
-              rdoq: bool, lam_rd: int, dq: bool = False):
+              rdoq: bool, lam_rd: int, dq: bool = False, crs_sc=None):
     """Chroma prediction choice of a batch of leaves (twin of the
     reference's chroma_rd_j): each (Cb, Cr) prediction pair of
     ``pred_opts`` (DM first, then CCLM) is coded, reconstructed and costed
     in one stacked pass; the first minimum in option order wins.
 
     bcbk, bcrk: (B, cs, cs) source blocks; pred_opts: [(pred_cb, pred_cr)]
-    of (B, cs, cs).  Returns (lev_cb, lev_cr, rec_cb, rec_cr, use_c) with
-    use_c the (B,) index of the chosen option."""
+    of (B, cs, cs); crs_sc: None or the (B,) LMCS chroma residual scales
+    (the distortion is taken between scaled residuals).  Returns (lev_cb,
+    lev_cr, rec_cb, rec_cr, use_c) with use_c the (B,) index of the
+    chosen option."""
     dev = bcbk.device
     P = len(pred_opts)
     mx = (1 << bd) - 1
     res = ([bcbk - pcb for pcb, _ in pred_opts]
            + [bcrk - pcr for _, pcr in pred_opts])
+    if crs_sc is not None:
+        res = [crs_fwd(r, crs_sc) for r in res]
     coef = transform.forward_transform(torch.stack(res, 1), cs, cs, bd=bd)
     lev = transform.quantize(coef, cs, cs, qp, intra=True, bd=bd,
                              rdoq=rdoq, lam_rd=lam_rd, dq=dq)
@@ -89,8 +135,19 @@ def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
     b = torch.arange(i.shape[0], device=dev)
     pcb = torch.stack([p for p, _ in pred_opts], 1)[b, i]
     pcr = torch.stack([p for _, p in pred_opts], 1)[b, i]
-    return (lev[b, i], lev[b, P + i], (pcb + rr[b, i]).clamp(0, mx),
-            (pcr + rr[b, P + i]).clamp(0, mx), i.to(torch.int32))
+    rcb, rcr = rr[b, i], rr[b, P + i]
+    if crs_sc is not None:
+        rcb, rcr = crs_inv(rcb, crs_sc), crs_inv(rcr, crs_sc)
+    return (lev[b, i], lev[b, P + i], (pcb + rcb).clamp(0, mx),
+            (pcr + rcr).clamp(0, mx), i.to(torch.int32))
+
+
+def fill8(plane, vals, f, xs, ys, w: int, h: int):
+    """plane[f, granules of each w x h leaf at (xs, ys)] = vals: a leaf's
+    tool index on every 8x8 granule it covers, as the spec model records
+    it (the entropy coder reads the top-left one)."""
+    plane[_index(f, xs // 8, ys // 8, max(w // 8, 1), max(h // 8, 1))] = \
+        vals[:, None, None]
 
 
 def _scatter(buf, blocks, f, xs, ys, w: int, h: int, off: int):
@@ -110,7 +167,10 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
     reference's _inter_batch_pass).
 
     carry: dict of (F, ...) recon buffers, level planes and source planes
-    (updated in place); ib_slots: (B, 14) int32 numpy rows of
+    (updated in place) and, with LMCS, the frames' (F, 2^bd) forward and
+    CRS LUTs "fwd" and "crs" (the luma prediction is forward-mapped after
+    every tool, and the chroma residual scaled by the leaf's CRS scale);
+    ib_slots: (B, 14) int32 numpy rows of
     make_slots_split plus the frame index in column 13, whose padded rows
     (x = y = 2^20) are dropped here on the host; refs: the padded (l0 y,
     cb, cr, l1 y, cb, cr) reference planes, each an (F, Hp, Wp) stack.
@@ -184,16 +244,15 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
                 _affine_override(pred_y, pred_cb, pred_cr, slots,
                                  torch.as_tensor(ai, device=dev),
                                  refs[3 * lst:3 * lst + 3], s, bd)
+    # LMCS: the final luma prediction is forward-mapped; the residual is
+    # coded and the leaf reconstructed in the mapped domain
+    pred_y = fwd_map(carry.get("fwd"), f, pred_y)
     if sbt:
         if encode:
             sidx, lvy, rres = transform.choose_sbt(
                 _gather(carry["sy"], f, x, y, s, s) - pred_y, s, qp, lam_rd,
                 bd=bd, rdoq=rdoq, dq=dq)
-            g = torch.arange(s // 8, device=dev)
-            carry["sbtp"][f.long()[:, None, None],
-                          (y // 8).long()[:, None, None] + g[None, :, None],
-                          (x // 8).long()[:, None, None] + g[None, None, :]] \
-                = sidx[:, None, None]
+            fill8(carry["sbtp"], sidx, f, x, y, s, s)
         else:
             lvy = _gather(carry["sy"], f, x, y, s, s)
             rres = transform.sbt_resi(lvy, rows[:, 8], s, qp, bd, dq=dq)
@@ -201,10 +260,11 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
     else:
         ry, lvy = _component(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
                              encode, rdoq, lam_rd, dq)
+    sc = crs_scale(carry.get("crs"), f, ry, s, s)
     rcb, lvcb = _component(carry["scb"], pred_cb, f, x // 2, y // 2, cs, cs,
-                           qp, bd, encode, rdoq, lam_rd, dq)
+                           qp, bd, encode, rdoq, lam_rd, dq, sc)
     rcr, lvcr = _component(carry["scr"], pred_cr, f, x // 2, y // 2, cs, cs,
-                           qp, bd, encode, rdoq, lam_rd, dq)
+                           qp, bd, encode, rdoq, lam_rd, dq, sc)
     _scatter(carry["by"], ry, f, x, y, s, s, 1)
     _scatter(carry["bcb"], rcb, f, x // 2, y // 2, cs, cs, 1)
     _scatter(carry["bcr"], rcr, f, x // 2, y // 2, cs, cs, 1)
@@ -221,7 +281,8 @@ def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
     wide and h high, of every frame at once (twin of the reference's
     _inter_batch_pass_rect): translational MC, L0, L1 or the rounded
     equal-weight BI average, then the rect transform in each component,
-    with RDOQ or, with ``dq``, dependent quantization.
+    with RDOQ or, with ``dq``, dependent quantization, and with LMCS the
+    mapping and scaling of _inter_batch_pass.
 
     ib_slots: (B, 8) int32 numpy rows [x, y, mv0x, mv0y, mv1x, mv1y, dir,
     frame index] of make_slots_split's rect arrays, whose padded rows
@@ -248,17 +309,19 @@ def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
         avg = ((p0 + p1 + 1) >> 1).clamp(max=mx)
         return torch.where(d == 0, p0, torch.where(d == 1, p1, avg))
 
-    ry, lvy = _component(carry["sy"], pred(refs[0], refs[3], x, y, w, h,
-                                           True),
-                         f, x, y, w, h, qp, bd, encode, rdoq, lam_rd, dq)
+    pred_y = fwd_map(carry.get("fwd"), f,
+                     pred(refs[0], refs[3], x, y, w, h, True))
+    ry, lvy = _component(carry["sy"], pred_y, f, x, y, w, h, qp, bd, encode,
+                         rdoq, lam_rd, dq)
     _scatter(carry["by"], ry, f, x, y, w, h, 1)
     if encode:
         _scatter(carry["ly"], lvy, f, x, y, w, h, 0)
+    sc = crs_scale(carry.get("crs"), f, ry, w, h)
     for c, r0, r1 in (("cb", refs[1], refs[4]), ("cr", refs[2], refs[5])):
         rc, lvc = _component(carry["s" + c], pred(r0, r1, x // 2, y // 2, cw,
                                                   ch, False),
                              f, x // 2, y // 2, cw, ch, qp, bd, encode, rdoq,
-                             lam_rd, dq)
+                             lam_rd, dq, sc)
         _scatter(carry["b" + c], rc, f, x // 2, y // 2, cw, ch, 1)
         if encode:
             _scatter(carry["l" + c], lvc, f, x // 2, y // 2, cw, ch, 0)

@@ -8,12 +8,12 @@ inter leaf, which depends on nothing in the current frame) runs first.
 One engine: an eager loop over the schedule, with the intra toolset
 (MIP, MRL, ISP, MTS, LFNST, CCLM), CIIP and the rectangular leaves of the
 multi-type tree on the phase-B leaves, VVC's inter toolset (BCW, GPM,
-DMVR, BDOF, affine, SBT) and the rectangular inter leaves in phase A, and
-dependent quantization in every leaf class.  It runs F
-mutually independent frames at once (one temporal layer's B frames): the
-buffers carry a leading frame axis, every row its frame index, and the
-frames' schedules merge by (level, class), so one launch sequence covers
-a level of every frame.
+DMVR, BDOF, affine, SBT) and the rectangular inter leaves in phase A,
+dependent quantization and LMCS in every leaf class.  It runs F mutually
+independent frames at once (one temporal layer's B frames): the buffers
+carry a leading frame axis, every row its frame index (which also picks
+its frame's LMCS model), and the frames' schedules merge by (level,
+class), so one launch sequence covers a level of every frame.
 """
 from __future__ import annotations
 
@@ -225,25 +225,21 @@ _comp_local = recon._component
 _gather = recon._gather
 
 
-def _scatter8(plane, vals, f, xs, ys):
-    """plane[f, ys // 8, xs // 8] = vals: a leaf's tool index at its
-    top-left 8x8 granule."""
-    plane[f.long(), (ys // 8).long(), (xs // 8).long()] = vals
-
-
 def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
                  frame_w: int, frame_h: int, n_ctu_x: int, log2_ctu: int,
                  qp: int, bd: int, encode: bool, rdoq: bool, lam_rd: int,
                  cclm: bool, dq: bool = False):
     """Chroma part of a batch of B square intra leaves: DM prediction or,
     with ``cclm``, the RD choice between DM and CCLM (encode) or the
-    signalled choice ``cmode`` (decode); separate Cb/Cr residuals.  Cb
-    and Cr run as one batch of 2B rows over the stacked chroma planes
+    signalled choice ``cmode`` (decode); separate Cb/Cr residuals, with
+    LMCS scaled by each leaf's CRS scale from its luma recon ``rec_y``.
+    Cb and Cr run as one batch of 2B rows over the stacked chroma planes
     (Cb frames, then Cr frames).  Returns (rec, lev, use_cclm or None),
     rec and lev (2B, s/2, s/2) with the Cb rows first."""
     cs = s // 2
     cx2, cy2 = x // 2, y // 2
     x2, y2, f2 = _chroma_rows(carry, f, x, y)
+    sc = recon.crs_scale(carry.get("crs"), f, rec_y, s, s, reps=2)
     top, left = intra_pred.build_references(
         carry["bc"], x2, y2, s=cs, is_luma=False, frame_w=frame_w // 2,
         frame_h=frame_h // 2, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd,
@@ -260,13 +256,13 @@ def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
             src = _gather(carry["sc"], f2, x2, y2, cs, cs)
             lev_cb, lev_cr, rcb, rcr, use_c = recon.chroma_rd(
                 src[:B], src[B:], [(pred[:B], pred[B:]), (lm[:B], lm[B:])],
-                cs, qp, bd, rdoq, lam_rd, dq)
+                cs, qp, bd, rdoq, lam_rd, dq, None if sc is None else sc[:B])
             return (torch.cat([rcb, rcr]), torch.cat([lev_cb, lev_cr]),
                     use_c)
         pred = torch.where((torch.cat([cmode, cmode]) > 0)[:, None, None],
                            lm, pred)
     rec, lev = _comp_local(carry["sc"], pred, f2, x2, y2, cs, cs, qp, bd,
-                           encode, rdoq, lam_rd, dq)
+                           encode, rdoq, lam_rd, dq, sc)
     return rec, lev, use_c
 
 
@@ -281,7 +277,8 @@ def _chroma_rows(carry, f, x, y):
 def _put_leaf(carry, f, x, y, w: int, h: int, rec_y, lev_y, chroma,
               encode: bool, midx=None, lidx=None):
     """Scatter a batch of w x h leaves' recon (and, encoding, levels and
-    tool indices) into the carry, in place."""
+    tool indices, the latter on every 8x8 granule of each leaf, as the
+    spec model records them) into the carry, in place."""
     rec_c, lev_c, use_c = chroma
     x2, y2, f2 = _chroma_rows(carry, f, x, y)
     _scatter(carry["by"], rec_y, f, x, y, w, h, 1)
@@ -291,10 +288,10 @@ def _put_leaf(carry, f, x, y, w: int, h: int, rec_y, lev_y, chroma,
     _scatter(carry["ly"], lev_y, f, x, y, w, h, 0)
     _scatter(carry["lc"], lev_c, f2, x2, y2, w // 2, h // 2, 0)
     if midx is not None:
-        _scatter8(carry["mtsp"], midx, f, x, y)
-        _scatter8(carry["lfnstp"], lidx, f, x, y)
+        recon.fill8(carry["mtsp"], midx, f, x, y, w, h)
+        recon.fill8(carry["lfnstp"], lidx, f, x, y, w, h)
     if use_c is not None:
-        _scatter8(carry["cmodep"], use_c, f, x, y)
+        recon.fill8(carry["cmodep"], use_c, f, x, y, w, h)
 
 
 def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
@@ -404,7 +401,10 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     planar intra prediction from the reconstructed neighbours, in luma
     and in both chroma components, then coded and reconstructed (twin of
     the reference's _ciip_batch).  rows: (k, 17) device rows; refs: the
-    six (F, Hp, Wp) padded reference stacks of phase A."""
+    six (F, Hp, Wp) padded reference stacks of phase A.  With LMCS the
+    luma MC prediction is forward-mapped before the blend (which runs in
+    the mapped domain, as the recon buffer does) and the chroma residual
+    scaled by each leaf's CRS scale."""
     x, y, f = rows[:, 1], rows[:, 2], rows[:, 16]
     mvx, mvy, m1x, m1y = rows[:, 4], rows[:, 5], rows[:, 11], rows[:, 12]
     dd = rows[:, 13, None, None]
@@ -432,11 +432,13 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
                                   torch.full_like(px, rom.PLANAR_IDX),
                                   s=sz, is_luma=luma, bd=bd)
 
-    pred_y = ((mcpred(refs[0], refs[3], x, y, s, True)
-               + planar(carry["by"], x, y, f, s, True) + 1) >> 1).clamp(0,
-                                                                      mx)
+    mc_y = recon.fwd_map(carry.get("fwd"), f,
+                         mcpred(refs[0], refs[3], x, y, s, True))
+    pred_y = ((mc_y + planar(carry["by"], x, y, f, s, True) + 1)
+              >> 1).clamp(0, mx)
     rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
                                encode, rdoq, lam_rd, dq)
+    sc = recon.crs_scale(carry.get("crs"), f, rec_y, s, s, reps=2)
     # Cb and Cr as one batch of 2B rows over the stacked chroma planes
     x2, y2, f2 = _chroma_rows(carry, f, x, y)
     mc_c = torch.cat([mcpred(refs[1], refs[4], x // 2, y // 2, cs, False),
@@ -444,7 +446,7 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     pred_c = ((mc_c + planar(carry["bc"], x2, y2, f2, cs, False) + 1)
               >> 1).clamp(0, mx)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
-                               bd, encode, rdoq, lam_rd, dq)
+                               bd, encode, rdoq, lam_rd, dq, sc)
     _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, (rec_c, lev_c, None),
               encode)
 
@@ -457,7 +459,9 @@ def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
     regular modes and DM chroma, no square-only tool.  The sibling that
     precedes a leaf in coding order shares its parent's Morton index, so
     the parent square (x & ~(ps-1), y & ~(ps-1)) of side ps = max(w, h)
-    counts as coded, as for ISP stripes.  Cb and Cr run as one batch."""
+    counts as coded, as for ISP stripes.  Cb and Cr run as one batch,
+    with LMCS scaled by each leaf's CRS scale (the w x h leaf's average
+    mapped luma)."""
     x, y, mode, f = rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 16]
     n_ctu_x = frame_w >> log2_ctu
     ps = max(w, h)
@@ -480,8 +484,9 @@ def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
         leaf_w=ps // 2, leaf_h=ps // 2, f=f2, **geo)
     pred_c = intra_pred.predict_rect(tc, lc, torch.cat([mode, mode]), w=cw,
                                      h=ch, is_luma=False, bd=bd)
+    sc = recon.crs_scale(carry.get("crs"), f, rec_y, w, h, reps=2)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cw, ch, qp,
-                               bd, encode, rdoq, lam_rd, dq)
+                               bd, encode, rdoq, lam_rd, dq, sc)
     _put_leaf(carry, f, x, y, w, h, rec_y, lev_y, (rec_c, lev_c, None),
               encode)
 
@@ -494,7 +499,8 @@ def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
 def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
                frame_h: int, qp: int, bd: int, encode: bool,
                log2_ctu: int = 6, inter_enabled: bool = False, refs=None,
-               inter=None, rdoq: bool = False, lam_rd: int = 0, **tools):
+               inter=None, rdoq: bool = False, lam_rd: int = 0,
+               fwd_lut=None, crs_lut=None, **tools):
     """Reconstruct one frame: phase A, then the phase-B intra leaves level
     by level (frame_wave_batch over this one frame).
 
@@ -502,14 +508,17 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
     planes_*: int32 device planes (source when encoding, parsed levels
     when decoding); refs: the padded (y, cb, cr) reference planes of a P
     frame, or (l0 y, cb, cr, l1 y, cb, cr) of a B frame, and inter:
-    {8/16/32 and the RECT_SHAPES: numpy phase-A rows}; tools: the tool
-    flags of frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr,
+    {8/16/32 and the RECT_SHAPES: numpy phase-A rows}; fwd_lut, crs_lut:
+    the frame's LMCS LUTs or None; tools: the tool flags of
+    frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr,
     levels_y, levels_cb, levels_cr, mts, lfnst, cmode, sbt); the last four
     are the 8x8 grids of the chosen tool indices (encoding; zero when
     decoding)."""
     fr = dict(slots=slots, py=planes_y, pcb=planes_cb, pcr=planes_cr)
     if inter_enabled:
         fr.update(refs=refs, inter=inter)
+    if fwd_lut is not None:
+        fr.update(fwd_lut=fwd_lut, crs_lut=crs_lut)
     return frame_wave_batch([fr], frame_w=frame_w, frame_h=frame_h, qp=qp,
                             bd=bd, encode=encode, log2_ctu=log2_ctu,
                             rdoq=rdoq, lam_rd=lam_rd, **tools)[0]
@@ -536,19 +545,28 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     """Reconstruct F mutually independent frames of one slice type and QP
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
-    frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter]} as
-    frame_wave takes them; the planes are int32 tensors on the device all
-    frames share.  mts, lfnst, cclm, mip: the SPS intra tools (MRL and
-    ISP are read from the slot rows); ciip: the CIIP leaf class of phase
-    B; dmvr, bdof, gpm, affine: phase A's inter tools (DMVR and BDOF only
-    for BI-symmetric frames, as the callers gate them); sbt: SBT in phase
-    A; dq: dependent quantization in every leaf class.  The rectangular
-    (BT and TT) leaves of the multi-type tree run in phase A (inter, the
-    rect arrays of make_slots_split in ``inter``) and phase B (intra)
-    wherever the slot tables hold them.  Returns a list
-    of per-frame 10-tuples, each equal to frame_wave's for that frame
-    alone."""
+    frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter] [,
+    fwd_lut, crs_lut]} as frame_wave takes them; the planes are int32
+    tensors on the device all frames share.  With LMCS every frame
+    carries its own model's forward and CRS LUTs (2^bd entries), and
+    ``py`` is its forward-mapped source luma when encoding: the luma is
+    reconstructed in the mapped domain, inter predictions are
+    forward-mapped and chroma residuals scaled.  Frames with and without
+    LMCS are not mixed in one call.  mts, lfnst, cclm, mip: the SPS intra
+    tools (MRL and ISP are read from the slot rows); ciip: the CIIP leaf
+    class of phase B; dmvr, bdof, gpm, affine: phase A's inter tools
+    (DMVR and BDOF only for BI-symmetric frames, as the callers gate
+    them); sbt: SBT in phase A; dq: dependent quantization in every leaf
+    class.  The rectangular (BT and TT) leaves of the multi-type tree run
+    in phase A (inter, the rect arrays of make_slots_split in ``inter``)
+    and phase B (intra) wherever the slot tables hold them.  Returns a
+    list of per-frame 10-tuples, each equal to frame_wave's for that
+    frame alone."""
     F = len(frames_in)
+    lmcs = {fr.get("fwd_lut") is not None for fr in frames_in}
+    if len(lmcs) > 1:
+        raise ValueError("frames with and without LMCS in one wave")
+    lmcs = lmcs.pop()
     dev = frames_in[0]["py"].device
     h2, w2 = frame_h // 2, frame_w // 2
 
@@ -574,6 +592,10 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         lfnstp=z(frame_h // 8, frame_w // 8),
         cmodep=z(frame_h // 8, frame_w // 8),
         sbtp=z(frame_h // 8, frame_w // 8))
+    if lmcs:
+        # LMCS: each frame's own model, (F, 2^bd) LUTs that every leaf
+        # row indexes with its frame index
+        carry["fwd"], carry["crs"] = stack("fwd_lut"), stack("crs_lut")
     refs = None
     if frames_in[0].get("refs") is not None:
         # a P frame's three planes serve both lists
