@@ -76,11 +76,7 @@ Phases, in order; any failure exits non-zero:
    per leaf class, the trellis per block shape (the 12 rect shapes among
    them) timed against its twin, and the decide stage of one I, P and B
    frame with and without MTT and its rect passes timed.  Every rect
-   shape and both TT directions must occur in 7a and 7b together.  Phase
-   7 runs in a process of its own beside phases 5 and 6, so the walls
-   and card busy shares of phases 5, 6 and 7 are measured with both
-   running (the card's busy share is the device's); its lines print
-   after phase 6;
+   shape and both TT directions must occur in 7a and 7b together;
 8. LMCS (luma mapping with chroma residual scaling), one model per frame
    through the frame-batched wave: (8a) test_lmcs.py's all-intra and GOP2
    clips (64x96) and test_tt.py's LMCS config (64x96 GOP4 with MTT, TT
@@ -95,8 +91,33 @@ Phases, in order; any failure exits non-zero:
    (7b's toolset with LMCS): hashes verified, recon == decoded,
    3 me_sad launches at 11 keys, the trellis launched, with stage and
    per-layer times, the phase-B batches per leaf class and the encode
-   and decode walls against 7b's in the same process.  Phase 8 runs
-   after phase 7 in its process, beside phases 5 and 6.
+   and decode walls against 7b's in the same process;
+9. 10-bit input, tiles and subpictures: (9a) test_codec_roundtrip.py's
+   10-bit all-intra clip, test_tiles.py's two configs, a 192x192 10-bit
+   GOP2 clip whose 2x2 grid has four tile sizes, and test_subpic.py's
+   2x1 and 100x150 2x2 configs, encoded on the card, must equal the
+   spec model's bitstream and decisions (each subpicture's) and decode
+   on the card and in the spec model, hashes verified; phase 6a's clip
+   in 10 bits with every tool of the slice, LMCS, MTT and TT must give
+   the reference engine's stream (its SHA-256: the spec model's differs
+   at 10 bits) and decode on the card and in the spec model; the
+   transforms, transform choice, motion search, every leaf class and
+   phase A (at a tile's reference offset) and the loop filters on the
+   card must equal the CPU path on 10-bit worst-case inputs; me_sad at
+   2176x3840 on 10-bit samples equals its twin (noisy, flat, wrapping
+   lam) and is timed against its float32 bound; (9b) bench config #5 on
+   one card: 3 frames of 4K 10-bit random access GOP2 (I0 P2 B1, the
+   depth cut from a GOP for the script's limit) with a 2x2 tile grid
+   and the default toolset: hashes verified, recon == decoded, 3 me_sad
+   launches at 2176x3840, with stage and per-layer times, the phase-B
+   batches, fps, the card's busy share and peak memory.
+
+After phase 4 the script runs in three processes, each on a CUDA
+context of its own: phase 5 in the first, phases 7 and 8 in a second,
+phases 9 and 6 in a third.  So the walls and card busy shares of phases
+5 to 9 are measured with the others running (the card's busy share is
+the device's); the lines of phases 9 and 6, then 7 and 8, print after
+phase 5's.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -173,6 +194,37 @@ def motion_frames(n=3, h=64, w=96, seed=30):
     return [[np.roll(y, (2 * t, 3 * t), axis=(0, 1)),
              np.roll(cb, (t, t), axis=(0, 1)),
              np.roll(cr, (t, t), axis=(0, 1))] for t in range(n)]
+
+
+def synth_frames10(n, h, w, seed=0):
+    """Synthetic moving 10-bit test frames: the benchmark's pattern at
+    four times its amplitude around a brighter base, with noise over the
+    two low bits, so the samples reach both 0 and 1023."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(n):
+        y = (420 + 280 * np.sin((xx + 5 * t) / 11.0)
+             + 200 * np.cos((yy - 3 * t) / 8.0)
+             + 100 * np.sin(xx * yy / 900.0)
+             + rng.integers(-40, 41, (h, w))).clip(0, 1023).astype(np.int32)
+        cb = (512 + 100 * np.sin((xx[::2, ::2] + 2 * t) / 6.0)
+              + rng.integers(-4, 5, (h // 2, w // 2))).clip(
+            0, 1023).astype(np.int32)
+        cr = (512 - 80 * np.cos((yy[::2, ::2] + t) / 7.0)
+              + rng.integers(-4, 5, (h // 2, w // 2))).clip(
+            0, 1023).astype(np.int32)
+        frames.append([y, cb, cr])
+    return frames
+
+
+def to10(frames, seed=0):
+    """10-bit frames from 8-bit ones: each sample times four plus noise
+    over the two low bits."""
+    rng = np.random.default_rng(seed)
+    return [[(np.asarray(p, np.int32) << 2)
+             | rng.integers(0, 4, p.shape).astype(np.int32) for p in f]
+            for f in frames]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -485,58 +537,74 @@ def dq_lanes_sweep(dev):
                 f"{kdq.lanes_for(s * s, B)}")
 
 
-def phase_kernels(dev):
-    from vvctpu_torch.kernels import me_sad as kme
+def _me_sad_planes(dev, H, W, mx, seed, noise, flat):
+    """me_sad's check inputs at H x W with samples 0..mx: noisy motion; a
+    flat frame of value ``flat``, where every offset ties and only the
+    row-major order decides; a lam whose lam * bits wraps int32.  Returns
+    name -> (orig, padded ref, lam) on ``dev``."""
     from vvctpu_torch.spec.decide import lambda_satd_fp
+    rng = np.random.default_rng(seed)
+    orig = rng.integers(0, mx + 1, (H, W)).astype(np.int32)
+    ref = (np.roll(orig, (3, -5), (0, 1))
+           + rng.integers(-noise, noise + 1, (H, W))).clip(0, mx).astype(
+               np.int32)
+    flat = np.full((H, W), flat, np.int32)
+    lam = lambda_satd_fp(32)
+    cases = {"noisy": (orig, ref, lam), "flat": (flat, flat, lam),
+             "wrap": (orig, ref, 2 ** 27)}
+    return {k: (torch.as_tensor(o, device=dev),
+                torch.as_tensor(np.pad(r, 16, mode="edge"), device=dev), la)
+            for k, (o, r, la) in cases.items()}
+
+
+def phase_kernels(dev):
+    """Phase 1, me_sad: built, held against its twin and timed at 1080p
+    with 8-bit samples (7 and 11 keys) and at config #5's 2176x3840 with
+    10-bit samples (7 keys), on the card alone.  Returns the rows of the
+    1080p 7-key and the 4K 10-bit runs."""
+    from vvctpu_torch.kernels import me_sad as kme
     t0 = time.time()
     log = kme.build(verbose=True)
     print(f"[1] me_sad built in {time.time() - t0:.1f} s")
     for line in log.splitlines():
         if any(w in line for w in ("Compiling", "registers", "spill")):
             print(f"[1]   {line.strip()}")
-    H, W = 1088, 1920
-    rng = np.random.default_rng(1)
-    orig = rng.integers(0, 256, (H, W)).astype(np.int32)
-    ref = (np.roll(orig, (3, -5), (0, 1))
-           + rng.integers(-6, 7, (H, W))).clip(0, 255).astype(np.int32)
-    lam = lambda_satd_fp(32)
-    flat = np.full((H, W), 77, np.int32)
-    # noisy motion; a flat frame, where every offset ties and only the
-    # row-major order decides; a lam whose lam * bits wraps int32
-    cases = {"noisy": (orig, ref, lam), "flat": (flat, flat, lam),
-             "wrap": (orig, ref, 2 ** 27)}
-    planes = {k: (torch.as_tensor(o, device=dev),
-                  torch.as_tensor(np.pad(r, 16, mode="edge"), device=dev),
-                  la) for k, (o, r, la) in cases.items()}
-    go, gr, _ = planes["noisy"]
-    max_sample = int(max(orig.max(), ref.max()))   # of the timed inputs
     print(f"[1] me_sad dy split: {kme.SPLIT} warps per 32x32 region "
           "(csrc/me_sad.cu SPLIT)")
     rows = {}
-    for tt in (False, True):
-        keys = kme.KEYS[:11 if tt else 7]
-        err = 0
-        for kind, (o, r, la) in planes.items():
-            want = kme.me_sad_reference(o, r, la, tt=tt)
-            got = kme.me_sad(o, r, la, tt=tt)
-            torch.cuda.synchronize()
-            e = max(int((a - b).abs().max()) for g, w_ in zip(got, want)
-                    for a, b in zip(g, w_))
-            if e != 0:
-                raise AssertionError(f"me_sad differs from its twin ({kind}, "
-                                     f"tt={tt}): max abs err {e}")
-            err = max(err, e)
-        ms = cuda_ms(lambda: kme.me_sad(go, gr, lam, tt=tt), 20)
-        plain = cuda_ms(lambda: kme.me_sad_reference(go, gr, lam, tt=tt), 3)
-        bound, by = me_sad_bound_ms(H, W, keys, max_sample)
-        rows[tt] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-                        bound_ms=bound, bound_by=by)
-        print(f"[1] me_sad {H}x{W} keys={len(keys)}: equal to twin "
-              f"(tolerance 0, max abs err {err}) on {', '.join(planes)}")
-        print(f"[1]   kernel {ms:.4f} ms; twin {plain:.1f} ms; bound "
-              f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f} % of it; "
-              f"launches so far {kme.launches}")
-    return rows[False]
+    for tag, H, W, mx, seed, noise, flat, tts, plain_reps in (
+            ("8-bit", 1088, 1920, 255, 1, 6, 77, (False, True), 3),
+            ("10-bit", 2176, 3840, 1023, 13, 24, 1023, (False,), 2)):
+        planes = _me_sad_planes(dev, H, W, mx, seed, noise, flat)
+        go, gr, lam = planes["noisy"]
+        for tt in tts:
+            keys = kme.KEYS[:11 if tt else 7]
+            err = 0
+            for kind, (o, r, la) in planes.items():
+                want = kme.me_sad_reference(o, r, la, tt=tt)
+                got = kme.me_sad(o, r, la, tt=tt)
+                torch.cuda.synchronize()
+                e = max(int((a - b).abs().max()) for g, w_ in zip(got, want)
+                        for a, b in zip(g, w_))
+                if e != 0:
+                    raise AssertionError(
+                        f"me_sad {H}x{W} {tag} differs from its twin "
+                        f"({kind}, tt={tt}): max abs err {e}")
+                err = max(err, e)
+            ms = cuda_ms(lambda: kme.me_sad(go, gr, lam, tt=tt), 20)
+            plain = cuda_ms(lambda: kme.me_sad_reference(go, gr, lam, tt=tt),
+                            plain_reps)
+            bound, by = me_sad_bound_ms(H, W, keys, mx)
+            rows[tag, tt] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                                 bound_ms=bound, bound_by=by)
+            print(f"[1] me_sad {H}x{W} keys={len(keys)}, {tag} samples "
+                  f"(0..{mx}): equal to twin (tolerance 0, max abs err "
+                  f"{err}) on {', '.join(planes)}")
+            print(f"[1]   kernel {ms:.4f} ms; twin {plain:.1f} ms; bound "
+                  f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f} % of it; "
+                  f"launches so far {kme.launches}")
+        del planes, go, gr
+    return rows["8-bit", False], rows["10-bit", False]
 
 
 def _same_planes(*seqs):
@@ -569,6 +637,22 @@ def _spec_clips():
                     dict(qp=32, intra_period=0, gop=4, mmvd=True, sbt=True,
                          ciip=True, bcw=True, gpm=True, affine=True,
                          lmcs=True, dq=True, **MTT)),
+        # phase 9: test_codec_roundtrip.py:146, test_tiles.py:55 (both
+        # configs), unequal tiles, test_subpic.py:12 and :49
+        "ai10": (ai10_frames(), dict(qp=32, bit_depth=10)),
+        "tiles21": (motion_frames(3, 64, 128, seed=83),
+                    dict(qp=32, tile_cols=2, tile_rows=1)),
+        "tiles22": (motion_frames(3, 64, 128, seed=83),
+                    dict(qp=32, tile_cols=2, tile_rows=2, intra_period=0,
+                         gop=2, mmvd=True, ciip=True, sbt=True, lmcs=True)),
+        "tiles_unequal": (motion_frames(3, 192, 192, seed=84),
+                          dict(qp=32, bit_depth=10, tile_cols=2,
+                               tile_rows=2, intra_period=0, gop=2)),
+        "subpic21": (motion_frames(3, 64, 128, seed=21),
+                     dict(qp=32, subpic_cols=2, subpic_rows=1,
+                          intra_period=0)),
+        "subpic22": (motion_frames(2, 100, 150, seed=24),
+                     dict(qp=34, subpic_cols=2, subpic_rows=2)),
     }
 
 
@@ -581,8 +665,11 @@ def _spec_run(name):
     t0 = time.time()
     frames, kw = _spec_clips()[name]
     decs = []
-    data, _, _ = tseq.encode_sequence(frames, tseq.EncoderConfig(**kw),
-                                      decisions_out=decs)
+    if kw.get("subpic_cols", 1) * kw.get("subpic_rows", 1) > 1:
+        data, _, _ = _subpic_spec(frames, kw, decs)
+    else:
+        data, _, _ = tseq.encode_sequence(frames, tseq.EncoderConfig(**kw),
+                                          decisions_out=decs)
     out, _ = tseq.decode_sequence(data, check_hash=True)
     return data, decs, out, time.time() - t0
 
@@ -593,6 +680,8 @@ _SPEC = {}
 # seconds the spec model's runs took in the workers, and seconds the
 # card's phases waited for them
 _SPEC_T = {"work": 0.0, "wait": 0.0}
+# runs a later phase of the same process compares with (phase 7's 7b)
+_RUNS = {}
 
 
 def _spec(name):
@@ -714,7 +803,8 @@ def _run_full(dev, frames, cfg, decisions_out=None):
         torch.cuda.synchronize()
         r["t_enc"] = time.time() - t0
     r["dq_path"] = _dq_path(kdq.trace)
-    r["me_keys"] = kme.trace
+    r["me_keys"] = [k for k, _, _ in kme.trace]
+    r["me_shapes"] = [(h, w) for _, h, w in kme.trace]
     kdq.trace = kme.trace = None
     r["batches"] = wave.batches
     r["batch_kinds"] = dict(wave.batch_kinds)
@@ -731,7 +821,8 @@ def _run_full(dev, frames, cfg, decisions_out=None):
     r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if not _same_planes(recons, out):
         raise AssertionError("encoder recon != decoder output")
-    r["psnr"] = [float(tseq.psnr(f[0], x[0])) for f, x in zip(frames, recons)]
+    r["psnr"] = [float(tseq.psnr(f[0], x[0], cfg.bit_depth))
+                 for f, x in zip(frames, recons)]
     for p in r["psnr"]:
         if not np.isfinite(p) or p < 25.0:
             raise AssertionError(f"implausible Y-PSNR {p}")
@@ -1474,8 +1565,8 @@ def _mtt_decide_times(dev, frames, cfg):
 def phase_mtt(dev):
     """Phase 7: the multi-type tree (BT and TT splits) in I, P and B
     frames; returns the 1080p path's kernel launches (me_sad, dq_trellis),
-    the trellis's largest error against its twin at its shapes and 7b's
-    run (_run_full's numbers)."""
+    and the trellis's largest error against its twin at its shapes; keeps
+    7b's run (_run_full's numbers) in _RUNS for phase 8."""
     from vvctpu_torch.kernels import me_sad as kme
     from vvctpu_torch.spec import hls
     from vvctpu_torch.spec import sequence as tseq
@@ -1489,7 +1580,7 @@ def phase_mtt(dev):
     kme.trace = []
     data, decs, _ = _held_to_spec("64x256 GOP4 with MTT and TT", dev,
                                   "mtt_ra_tools")
-    keys, kme.trace = kme.trace, None
+    keys, kme.trace = [k for k, _, _ in kme.trace], None
     # one me_sad per P frame and one per list for each B frame, 11 keys
     plan = tseq.gop_plan(5, 0, 4)
     want = [11] * sum(1 if e[1] == hls.SLICE_P else 2 for e in plan
@@ -1542,7 +1633,8 @@ def phase_mtt(dev):
         raise AssertionError(f"phase 7: never chose {missing}")
     dq_err = _dq_path_times(dev, r["dq_path"], tag)
     _mtt_decide_times(dev, frames, cfg)
-    return r["launches"], r["dq_launches"], dq_err, r
+    _RUNS["7b"] = r
+    return r["launches"], r["dq_launches"], dq_err
 
 
 # ---------------------------------------------------------------------------
@@ -1555,11 +1647,13 @@ LMCS_CW = (64, 64) + (4,) * 12 + (40, 40)
 
 
 def _lmcs_leaf_out(kind, sy, sc, by, bc, fwd, crs, *refs, rows, s=0, w=0,
-                   h=0, d=0, flags=None):
-    """One LMCS leaf batch (kind "intra", "isp", "rect", "ciip", "phase_a"
-    or "phase_a_rect") of one frame, encoding, on a carry whose source
+                   h=0, d=0, flags=None, bd=8, roff=None):
+    """One leaf batch (kind "intra", "isp", "rect", "ciip", "phase_a" or
+    "phase_a_rect") of one frame, encoding, on a carry whose source
     planes are sy and the (Cb, Cr) stack sc, recon buffers by and bc and
-    LUTs fwd and crs; returns the carry's planes."""
+    LMCS LUTs fwd and crs (None: no LMCS), at bit depth ``bd``; ``roff``
+    None or (rox, roy), the offset of a tile whose MC reads the full
+    reference; returns the carry's planes."""
     from vvctpu_torch.pipeline import recon, wave
     dev = sy.device
     hh, ww = sy.shape
@@ -1569,12 +1663,17 @@ def _lmcs_leaf_out(kind, sy, sc, by, bc, fwd, crs, *refs, rows, s=0, w=0,
 
     carry = dict(by=by[None].clone(), bc=bc.clone(), ly=z(1, hh, ww),
                  lc=z(2, hh // 2, ww // 2), sy=sy[None], sc=sc,
-                 fwd=fwd[None], crs=crs[None], mtsp=z(1, hh // 8, ww // 8),
+                 mtsp=z(1, hh // 8, ww // 8),
                  lfnstp=z(1, hh // 8, ww // 8), cmodep=z(1, hh // 8, ww // 8),
                  sbtp=z(1, hh // 8, ww // 8))
+    if fwd is not None:
+        carry.update(fwd=fwd[None], crs=crs[None])
+    if roff is not None:
+        carry["roff"] = torch.tensor([[0, *roff]], dtype=torch.int32,
+                                     device=dev)
     for k in ("b", "l", "s"):
         carry[k + "cb"], carry[k + "cr"] = carry[k + "c"].split(1)
-    geo = dict(frame_w=ww, frame_h=hh, log2_ctu=6, bd=8, encode=True,
+    geo = dict(frame_w=ww, frame_h=hh, log2_ctu=6, bd=bd, encode=True,
                rdoq=True)
     rt = torch.as_tensor(rows, device=dev)
     refs = [r[None] for r in refs]
@@ -1589,10 +1688,10 @@ def _lmcs_leaf_out(kind, sy, sc, by, bc, fwd, crs, *refs, rows, s=0, w=0,
     elif kind == "ciip":
         wave._ciip_batch(carry, rt, refs, 32, 347, s=s, **flags, **geo)
     elif kind == "phase_a":
-        recon._inter_batch_pass(carry, rows, refs, s, 32, 8, True, rdoq=True,
-                                lam_rd=347, **flags)
+        recon._inter_batch_pass(carry, rows, refs, s, 32, bd, True,
+                                rdoq=True, lam_rd=347, **flags)
     else:
-        recon._inter_batch_pass_rect(carry, rows, refs, w, h, 32, 8, True,
+        recon._inter_batch_pass_rect(carry, rows, refs, w, h, 32, bd, True,
                                      rdoq=True, lam_rd=347, **flags)
     return tuple(carry[k] for k in ("by", "ly", "bc", "lc", "mtsp", "lfnstp",
                                     "cmodep", "sbtp"))
@@ -1727,11 +1826,11 @@ def _lmcs_worst_cases(dev):
     return n
 
 
-def phase_lmcs(dev, ref=None):
-    """Phase 8: LMCS in I, P and B frames, one model per frame; ``ref`` is
-    7b's run in the same process (phase_mtt's last result), against which
-    8b's walls are printed, or None.  Returns the 1080p path's kernel
-    launches (me_sad, dq_trellis)."""
+def phase_lmcs(dev):
+    """Phase 8: LMCS in I, P and B frames, one model per frame; where
+    phase 7 ran before it in this process, 8b's walls are printed against
+    7b's.  Returns the 1080p path's kernel launches (me_sad,
+    dq_trellis)."""
     from vvctpu_torch.spec import sequence as tseq
     for name, what in (("lmcs_ai", "64x96 AI, 2 frames"),
                        ("lmcs_gop2", "64x96 GOP2, 4 frames"),
@@ -1770,6 +1869,7 @@ def phase_lmcs(dev, ref=None):
         lt = r[f"{k}_l"]
         print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
             f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
+    ref = _RUNS.get("7b")
     if ref is not None:
         parts = []
         for k, what in (("enc", "encode"), ("dec", "decode")):
@@ -1785,6 +1885,313 @@ def phase_lmcs(dev, ref=None):
               f"one after the other): {'; '.join(parts)}; bits/frame "
               f"{sum(r['bits']) / n:.1f} against {sum(ref['bits']) / n:.1f}, "
               f"phase-B batches {r['batches']} against {ref['batches']}")
+    return r["launches"], r["dq_launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: 10-bit input, tiles and subpictures
+# ---------------------------------------------------------------------------
+
+
+def ai10_frames():
+    """test_codec_roundtrip.py:146's 10-bit 64x96 frame."""
+    rng = np.random.default_rng(60)
+    h, w = 64, 96
+    yy, xx = np.mgrid[0:h, 0:w]
+    y10 = (400 + 240 * np.sin(xx / 9.0) + 160 * np.cos(yy / 7.0)
+           + rng.integers(-30, 30, (h, w))).clip(0, 1023).astype(np.int32)
+    cb = (512 + 80 * np.sin(xx[::2, ::2] / 5.0)).clip(0, 1023).astype(
+        np.int32)
+    cr = (512 - 60 * np.cos(yy[::2, ::2] / 6.0)).clip(0, 1023).astype(
+        np.int32)
+    return [[y10, cb, cr]]
+
+
+def ra10_clip():
+    """Phase 6a's 64x256 GOP4 clip in 10 bits (``to10``) with every tool
+    of the slice: (frames, EncoderConfig keywords)."""
+    return to10(tool_frames(), seed=9), dict(
+        qp=27, intra_period=0, gop=4, bit_depth=10, isp=True, mrl=True,
+        sbt=True, dq=True, alf=True, lmcs=True, **MTT, **RA_TOOLS)
+
+
+# SHA-256 and length of the reference engine's stream of ra10_clip, which
+# the spec model's does not equal (at 10 bits the spec model's sub-pel
+# refinement clamps at 8 bits), computed on the CPU (23 min there) from
+# the repo root with
+#   JAX_PLATFORMS=cpu python -c "import hashlib, chip_smoke as c;
+#   from vvctpu.pipeline import encoder as e; from vvctpu.spec import
+#   sequence as s; f, kw = c.ra10_clip(); d = e.encode_sequence(f,
+#   s.EncoderConfig(**kw))[0]; print(len(d), hashlib.sha256(d).hexdigest())"
+RA10_BYTES = 29099
+RA10_SHA256 = ("2000d401a7c5f80a0d7e24f70a8a0883"
+               "cb4bdd712ed14b0ddabf842a9c46fce4")
+
+LMCS_CW10 = tuple(4 * c for c in LMCS_CW)
+
+
+def _bitdepth_worst_cases(dev):
+    """10-bit inputs on the card against the CPU path: the transforms at
+    +-1023 residuals, the transform choice with RDOQ and DQ, the motion
+    search's quarter-pel planes, refinement and BI costs at samples 0 and
+    1023, every leaf class and phase A (every inter tool, SBT and DQ, with
+    and without LMCS, at a tile's reference offset), deblocking, SAO and
+    ALF; returns the number of cases."""
+    from vvctpu_torch.coding import me as tme
+    from vvctpu_torch.core import rom
+    from vvctpu_torch.kernels import intra_pred as kip
+    from vvctpu_torch.kernels import loopfilter as klf
+    from vvctpu_torch.kernels import transform as ktf
+    from vvctpu_torch.pipeline import plan as tplan
+    from vvctpu_torch.spec import alf as salf
+    from vvctpu_torch.spec import codec as scodec
+    from vvctpu_torch.spec import lmcs as slmcs
+    bd, mx = 10, 1023
+    rng = np.random.default_rng(12)
+    n = 0
+    for sz in rom.TR_SIZES:
+        kinds = [rom.DCT2] + ([rom.DST7, rom.DCT8] if sz in rom.MTS_SIZES
+                              else [])
+        resi = rng.choice([-mx, mx], (64, sz, sz)).astype(np.int32)
+        resi[0], resi[1] = mx, -mx
+        coef = rng.choice([-32768, 32767], (64, sz, sz)).astype(np.int32)
+        for kh in kinds:
+            for kv in kinds:
+                n += _card_eq(f"fwd {sz} {kh},{kv}", dev,
+                              ktf.forward_transform, resi, sz, sz, kh, kv,
+                              bd)
+                n += _card_eq(f"inv {sz} {kh},{kv}", dev,
+                              ktf.inverse_transform, coef, sz, sz, kh, kv,
+                              bd)
+    for s in (8, 16, 32):
+        r = rng.integers(-mx, mx + 1, (24, s, s)).astype(np.int32)
+        r[0], r[1], r[2], r[3] = 0, mx, -mx, 1
+        md = rng.integers(0, 67, 24).astype(np.int32)
+        for dq in (False, True):
+            n += _card_eq(f"choose_tx {s} dq={dq}", dev, ktf.choose_tx, r,
+                          s, 32, 347, md, bd, mts=True, lfnst=True,
+                          rdoq=True, dq=dq)
+    # motion search at the sample clamps
+    h, w = 64, 128
+    sat = rng.choice([0, mx], (h, w)).astype(np.int32)
+    noisy = rng.integers(0, mx + 1, (h, w)).astype(np.int32)
+    r0, r1 = np.pad(sat, 80, mode="edge"), np.pad(noisy, 80, mode="edge")
+    n += _card_eq("quarter_phase_planes", dev, tme.quarter_phase_planes, r0,
+                  bd)
+    for s in (8, 16, 32):
+        g = (h // s, w // s, 2)
+        imv = rng.integers(-20, 21, g).astype(np.int32)
+        m0 = (rng.integers(-80, 81, g) * 4).astype(np.int32)
+        m1 = (rng.integers(-80, 81, g) * 4).astype(np.int32)
+        n += _card_eq(f"refine_pass {s}", dev,
+                      lambda o, rp, mv, s=s: tme.refine_pass(
+                          o, rp, mv, 211, s=s, frame_w=w, frame_h=h, bd=bd),
+                      noisy, r0, imv)
+        n += _card_eq(f"bi_cost_pass {s}", dev,
+                      lambda o, a, b, p0, p1, s=s: tme.bi_cost_pass(
+                          o, a, b, 211, s=s, frame_w=w, frame_h=h, bd=bd,
+                          planes0=tme.quarter_phase_planes(p0, bd),
+                          planes1=tme.quarter_phase_planes(p1, bd),
+                          bcw=True, bcw_fp=(300, 100, 300)),
+                      sat, m0, m1, r0, r1)
+    # every leaf class and phase A on saturated 10-bit planes
+    m = kip.MARGIN
+    src = rng.choice([0, mx], (h, w)).astype(np.int32)
+    src[:, : w // 2] = rng.integers(0, mx + 1, (h, w // 2))
+    sc = np.stack([src[::2, ::2], src[1::2, 1::2]]).copy()
+    by = np.zeros((h + 1 + m, w + 1 + m), np.int32)
+    by[1:h + 1, 1:w + 1] = mx - src
+    bc = np.zeros((2, h // 2 + 1 + m, w // 2 + 1 + m), np.int32)
+    bc[:, 1:h // 2 + 1, 1:w // 2 + 1] = mx - sc
+    # a 2x-wide reference picture: the tile at (64, 0) reads its right half
+    big = np.concatenate([noisy, sat], 1)
+    refs = [np.pad(big, 80, mode="edge"),
+            np.pad(big[::2, ::2], 40, mode="edge"),
+            np.pad(big[1::2, 1::2], 40, mode="edge"),
+            np.pad(big[:, ::-1].copy(), 80, mode="edge"),
+            np.pad(big[::2, ::-2].copy(), 40, mode="edge"),
+            np.pad(big[1::2, ::-2].copy(), 40, mode="edge")]
+    fwd, _ = slmcs.build_luts(LMCS_CW10, bd)
+    crs = slmcs.build_crs_lut(LMCS_CW10, bd)
+    kw = dict(bd=bd)
+
+    def grid(sw, sh, op):
+        ys, xs = np.mgrid[0:h:sh, 0:w:sw]
+        rows = np.zeros((xs.size, 17), np.int32)
+        rows[:, 0], rows[:, 1], rows[:, 2] = op, xs.ravel(), ys.ravel()
+        return rows
+
+    for lm in (None, (fwd, crs)):
+        tag = "lmcs " if lm else ""
+        planes = ((fwd[src] if lm else src), sc, by, bc) \
+            + (lm if lm else (None, None))
+        for s in (8, 16, 32):
+            rows = grid(s, s, s.bit_length() - 3)
+            rows[:, 3] = np.arange(rows.shape[0]) * 7 % (67 + 16)
+            rows[:, 9] = np.arange(rows.shape[0]) % 3 * (s == 8)
+            n += _card_eq(f"{tag}intra {s}", dev,
+                          lambda *a, rows=rows, s=s: _lmcs_leaf_out(
+                              "intra", *a, rows=rows, s=s,
+                              flags=dict(dq=True), **kw), *planes)
+            r = rows.copy()
+            r[:, 3] %= 67
+            r[:, 9] = 0
+            r[:, 15] = 1 + (s == 16)
+            n += _card_eq(f"{tag}isp {s}", dev,
+                          lambda *a, rows=r, s=s: _lmcs_leaf_out(
+                              "isp", *a, rows=rows, s=s, d=int(rows[0, 15]),
+                              flags=dict(dq=False), **kw), *planes)
+            r = grid(s, s, 7 + s.bit_length() - 4)
+            k = r.shape[0]
+            r[:, 4:6] = (rng.integers(-270, 271, (k, 2)) * 4).astype(np.int32)
+            r[:, 11:13] = (rng.integers(-270, 271, (k, 2)) * 4).astype(
+                np.int32)
+            r[:, 13] = np.arange(k) % 3
+            r[:, 14] = np.arange(k) % 3
+            n += _card_eq(f"{tag}ciip {s} tile offset", dev,
+                          lambda *a, rows=r, s=s: _lmcs_leaf_out(
+                              "ciip", *a, rows=rows, s=s, roff=(64, 0),
+                              flags=dict(dq=True), **kw), *planes, *refs)
+            nb = (h // s) * (w // s)
+            pa = np.zeros((nb, 14), np.int32)
+            pa[:, 0] = np.arange(nb) % (w // s) * s
+            pa[:, 1] = np.arange(nb) // (w // s) * s
+            pa[:, 2:6] = (rng.integers(-64, 65, (nb, 4)) * 4).astype(np.int32)
+            pa[:, 6] = np.arange(nb) % 3
+            pa[:, 7] = rng.integers(0, 3, nb)
+            pa[:, 9] = np.where(pa[:, 6] == 2, rng.integers(0, 65, nb), 0)
+            pa[:, 10] = (pa[:, 6] < 2) & (s >= 16)
+            pa[:, 11:13] = rng.choice([-8, 4, 8, -36], (nb, 2))
+            for flags in (dict(dmvr=True, bdof=True, gpm=True, affine=True,
+                               sbt=True, dq=True), dict(sbt=True)):
+                n += _card_eq(f"{tag}phase A {s} tile offset {sorted(flags)}",
+                              dev, lambda *a, rows=pa, s=s, fl=flags:
+                              _lmcs_leaf_out("phase_a", *a, rows=rows, s=s,
+                                             roff=(64, 0), flags=fl, **kw),
+                              *planes, *refs)
+        for i, (rw, rh) in enumerate(tplan.RECT_SHAPES):
+            r = grid(rw, rh, tplan.OP_RECT_INTRA0 + i)
+            r[:, 3] = np.arange(r.shape[0]) % 67
+            n += _card_eq(f"{tag}rect {rw}x{rh}", dev,
+                          lambda *a, rows=r, rw=rw, rh=rh: _lmcs_leaf_out(
+                              "rect", *a, rows=rows, w=rw, h=rh,
+                              flags=dict(dq=True), **kw), *planes)
+            k = r.shape[0]
+            ir = np.zeros((k, 8), np.int32)
+            ir[:, :2] = r[:, 1:3]
+            ir[:, 2:6] = (rng.integers(-270, 271, (k, 4)) * 4).astype(
+                np.int32)
+            ir[:, 6] = np.arange(k) % 3
+            n += _card_eq(f"{tag}phase A rect {rw}x{rh} tile offset", dev,
+                          lambda *a, rows=ir, rw=rw, rh=rh: _lmcs_leaf_out(
+                              "phase_a_rect", *a, rows=rows, w=rw, h=rh,
+                              roff=(64, 0), flags=dict(dq=True), **kw),
+                          *planes, *refs)
+    # deblocking (8x8 intra leaves: every edge filtered), SAO, ALF
+    dec = scodec.FrameDecisions.empty(h, w)
+    dec.split32[:] = 1
+    dec.split16[:] = 1
+    dec.modes8[:] = rng.integers(0, 67, dec.modes8.shape)
+    orig = [noisy, noisy[::2, ::2].copy(), noisy[1::2, 1::2].copy()]
+    rec = [np.clip(p + rng.integers(-90, 91, p.shape), 0, mx).astype(
+        np.int32) for p in orig]
+    for qp in (22, 37, 51):
+        n += _card_eq(f"finish_frame_j qp={qp}", dev,
+                      lambda *a, qp=qp: klf.finish_frame_j(
+                          list(a[:3]), dec, qp, 347, list(a[3:]), bd=bd),
+                      *rec, *orig)
+    alf = salf.derive_alf_frame(orig, rec, 27, 64, bd)
+    n += _card_eq("apply_alf_frame", dev,
+                  lambda *a: tuple(klf.apply_alf_frame(list(a), alf, 64, bd)),
+                  *rec)
+    return n
+
+
+def _subpic_spec(frames, kw, decs):
+    """The spec model's encode of a subpicture configuration with each
+    subpicture's decisions (subpicture after subpicture) in ``decs``."""
+    from vvctpu_torch.dist.subpic import encode_subpics
+    from vvctpu_torch.spec import sequence as tseq
+    return encode_subpics(frames, tseq.EncoderConfig(**kw),
+                          lambda fr, c: tseq.encode_sequence(
+                              fr, c, decisions_out=decs), threads=False)
+
+
+def phase_bitdepth_tiles(dev):
+    """Phase 9: 10-bit input, tiles and subpictures; returns the kernels'
+    launches on the 4K path (me_sad, dq_trellis)."""
+    import hashlib
+
+    from vvctpu_torch.kernels import dq as kdq
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import sequence as tseq
+    for name, what in (
+            ("ai10", "64x96 AI, 10-bit, 1 frame (test_codec_roundtrip.py)"),
+            ("tiles21", "64x128 AI, 2x1 tiles, 3 frames (test_tiles.py)"),
+            ("tiles22", "64x128 GOP2, 2x2 tiles, MMVD, CIIP, SBT, LMCS, "
+                        "3 frames (test_tiles.py)"),
+            ("tiles_unequal", "192x192 GOP2, 10-bit, 2x2 tiles of 1 and 2 "
+                              "CTUs (four tile sizes), 3 frames"),
+            ("subpic21", "64x128 IPPP, 2x1 subpictures, 3 frames "
+                         "(test_subpic.py)"),
+            ("subpic22", "100x150 AI, 2x2 subpictures, 2 frames "
+                         "(test_subpic.py)")):
+        data, _, _ = _held_to_spec(f"[9a] {what}", dev, name)
+        print(f"[9a] {what}: {len(data)} bytes and decisions equal to the "
+              "spec model; card and spec decoders verified hashes")
+    frames, kw = ra10_clip()
+    decs = []
+    before = kdq.launches
+    data, recons, _ = tenc.encode_sequence(
+        frames, tseq.EncoderConfig(**kw), device=dev, decisions_out=decs)
+    dq_small = kdq.launches - before
+    digest = hashlib.sha256(data).hexdigest()
+    if (len(data), digest) != (RA10_BYTES, RA10_SHA256):
+        raise AssertionError(f"[9a] 10-bit 64x256 GOP4: {len(data)} bytes, "
+                             f"SHA-256 {digest}; the reference engine's "
+                             f"are {RA10_BYTES}, {RA10_SHA256}")
+    out, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
+    sout, _ = tseq.decode_sequence(data, check_hash=True)
+    if not _same_planes(recons, out, sout):
+        raise AssertionError("[9a] 10-bit 64x256 GOP4: recon/decoder "
+                             "mismatch")
+    cnt = _tool_counts(decs)
+    if not dq_small or not all(cnt[t] for t in ("GPM", "affine", "BI")):
+        raise AssertionError(f"[9a] 10-bit 64x256 GOP4 tools: {cnt}, dq "
+                             f"{dq_small}")
+    print(f"[9a] 64x256 GOP4 QP27, 10-bit, 5 frames, every tool of the "
+          f"slice with LMCS, MTT and TT: {len(data)} bytes, SHA-256 equal "
+          "to the reference engine's stream; card and spec decoders "
+          "verified hashes; 8x8 granules of P/B frames per tool: "
+          + ", ".join(f"{k} {v}" for k, v in cnt.items())
+          + f"; dq_trellis launches {dq_small}")
+    print(f"[9a] 10 bits: card == CPU on {_bitdepth_worst_cases(dev)} "
+          "worst-case batches (transforms at +-1023, choose_tx with RDOQ "
+          "and DQ, quarter-pel planes, refine and BI costs at samples 0 "
+          "and 1023, every leaf class and phase A with and without LMCS at "
+          "a tile's offset, deblocking, SAO, ALF)")
+    # 9b: bench config #5 on one card
+    n = 3
+    cfg = tseq.EncoderConfig(qp=32, bit_depth=10, intra_period=32, gop=2,
+                             tile_cols=2, tile_rows=2)
+    r = _run_full(dev, synth_frames10(n, 2160, 3840, seed=5), cfg)
+    tag = "[9b]"
+    if r["me_shapes"] != [(2176, 3840)] * 3:
+        raise AssertionError(f"{tag} me_sad launches at {r['me_shapes']}, "
+                             "expected three at 2176x3840")
+    print(f"{tag} bench config #5 on one card: 4K (3840x2160) 10-bit RA "
+          f"GOP2 QP32, 2x2 tiles of 1920x1088, {n} frames (I0 P2 B1; depth "
+          f"cut from a GOP for the script's limit): "
+          f"{sum(r['bits']) / n:.1f} bits/frame (new data: the reference "
+          f"engine never ran it); me_sad launches {r['launches']}, all at "
+          "2176x3840")
+    _report(tag, r, n)
+    print(f"{tag} phase-B batches of the encode per leaf class: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(r["batch_kinds"].items())))
+    for k in ("enc", "dec"):
+        lt = r[f"{k}_l"]
+        print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
+            f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
     return r["launches"], r["dq_launches"]
 
 
@@ -1813,11 +2220,11 @@ def walls(dev):
               + _stages_line("encode", r["enc_t"], r["t_enc"]))
 
 
-def _phase_side(spec):
-    """phase_mtt then phase_lmcs in a process of their own, on a CUDA
-    context of its own, with the spec model's results for 7a and 8a given
-    as ``spec`` (name -> _spec's result); returns (what they printed,
-    phase 7's results, its seconds, phase 8's results, its seconds).  On
+def _phase_proc(spec, phases):
+    """The phase functions ``phases``, one after the other, in a process of
+    their own on a CUDA context of its own, with the spec model's results
+    they hold clips against given as ``spec`` (name -> _spec's result);
+    returns (what they printed, [(each phase's result, its seconds)]).  On
     a failure it writes what it printed to stderr."""
     import contextlib
     import io
@@ -1826,17 +2233,25 @@ def _phase_side(spec):
         _SPEC[name] = Future()
         _SPEC[name].set_result(res + (0.0,))
     buf = io.StringIO()
+    outs = []
     try:
         with contextlib.redirect_stdout(buf):
-            t0 = time.time()
-            out7 = phase_mtt(torch.device("cuda"))
-            t7 = time.time() - t0
-            out8 = phase_lmcs(torch.device("cuda"), out7[3])
-            t8 = time.time() - t0 - t7
+            for fn in phases:
+                t0 = time.time()
+                outs.append((fn(torch.device("cuda")), time.time() - t0))
     except BaseException:
         sys.stderr.write(buf.getvalue())
         raise
-    return buf.getvalue(), out7[:3], t7, out8, t8
+    return buf.getvalue(), outs
+
+
+# phases 7 and 8, and 9 and 6, with the clips of each pair that are held
+# against the spec model
+_SIDE = (((phase_mtt, phase_lmcs),
+          ("mtt_intra", "mtt_ra_tools", "lmcs_ai", "lmcs_gop2", "lmcs_tt")),
+         ((phase_bitdepth_tiles, phase_ra_tools),
+          ("ra_tools", "ai10", "tiles21", "tiles22", "tiles_unequal",
+           "subpic21", "subpic22")))
 
 
 def main() -> int:
@@ -1851,50 +2266,60 @@ def main() -> int:
         print(f"[time] {tag}: {time.time() - t0:.1f} s")
         return out
 
-    # the spec model's side of phases 2, 5a, 6a and 7a is host work: two
-    # worker processes run it while the card runs the phases before them
+    # the spec model's side of phases 2, 5a, 6a, 7a, 8a and 9a is host
+    # work: two worker processes run it while the card runs the phases
+    # before them
     ctx = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(max_workers=2, mp_context=ctx)
-    # phases 7 and 8 run in a process of their own beside phases 5 and
-    # 6: each phase's host is one core and its card mostly idle, and one
-    # after the other they would leave the script no margin within its
-    # limit
-    side = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+    # after phase 4 the script runs in three processes: phase 5 here,
+    # phases 7 and 8 in a second, phases 9 and 6 in a third; each phase's
+    # host is one core and its card mostly idle, and one after the other
+    # they would leave the script no margin within its limit.  Their
+    # walls and busy shares are those of a card the three share.
+    side = [ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+            for _ in _SIDE]
     try:
         for name in _spec_clips():
             _SPEC[name] = pool.submit(_spec_run, name)
-        krow = timed("phase 1 me_sad", phase_kernels)
+        krow, krow10 = timed("phase 1 me_sad", phase_kernels)
         drow = timed("phase 1 dq_trellis", phase_dq_kernel)
         timed("phase 2", phase_small)
         launches = timed("phase 3", phase_full) + timed("phase 4", phase_ra)
-        fut = side.submit(_phase_side, {
-            n: _spec(n) for n in ("mtt_intra", "mtt_ra_tools", "lmcs_ai",
-                                  "lmcs_gop2", "lmcs_tt")})
+        futs = [ex.submit(_phase_proc, {n: _spec(n) for n in names}, fns)
+                for ex, (fns, names) in zip(side, _SIDE)]
         launches += timed("phase 5", phase_ai)
-        me4, dq_launches, dq_err = timed("phase 6", phase_ra_tools)
-        t0 = time.time()
-        text, (me7, dq7, dq_err7), t7, (me8, dq8), t8 = fut.result()
-        print(text, end="")
-        print(f"[time] phases 7 and 8: {t7:.1f} s and {t8:.1f} s, beside "
-              f"phases 5 and 6 (then waited for {time.time() - t0:.1f} s)")
+        outs = {}
+        for fut, (fns, _) in zip(futs, _SIDE):
+            t0 = time.time()
+            text, res = fut.result()
+            print(text, end="")
+            outs.update((fn.__name__, out) for fn, (out, _) in zip(fns, res))
+            print("[time] " + " and ".join(
+                f"{fn.__name__} {t:.1f} s" for fn, (_, t) in zip(fns, res))
+                + " in a process of their own, beside the others (then "
+                f"waited for {time.time() - t0:.1f} s)")
     finally:
-        side.shutdown(wait=True, cancel_futures=True)
-        pool.shutdown(wait=True, cancel_futures=True)
+        for ex in (*side, pool):
+            ex.shutdown(wait=True, cancel_futures=True)
     print(f"[time] spec model side in the workers: {_SPEC_T['work']:.1f} s; "
           f"the card's phases waited {_SPEC_T['wait']:.1f} s for it, so "
           f"the workers saved {_SPEC_T['work'] - _SPEC_T['wait']:.1f} s")
+    me7, dq7, dq_err7 = outs["phase_mtt"]
+    me8, dq8 = outs["phase_lmcs"]
+    me9, dq9 = outs["phase_bitdepth_tiles"]
+    me4, dq_launches, dq_err = outs["phase_ra_tools"]
+    me_err = max(krow["max_abs_err"], krow10["max_abs_err"])
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
-                    launches=launches + me4 + me7 + me8,
-                    equal=krow["max_abs_err"] == 0,
-                    max_abs_err=krow["max_abs_err"], ms=krow["ms"],
+                    launches=launches + me4 + me7 + me8 + me9,
+                    equal=me_err == 0, max_abs_err=me_err, ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
                     bound_by=krow["bound_by"], library_ms=None),
                dict(name="dq_trellis", route="cuda",
                     source="vvctpu_torch/csrc/dq_trellis.cu",
                     replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
-                    launches=dq_launches + dq7 + dq8,
+                    launches=dq_launches + dq7 + dq8 + dq9,
                     equal=max(drow["max_abs_err"], dq_err, dq_err7) == 0,
                     max_abs_err=max(drow["max_abs_err"], dq_err, dq_err7),
                     ms=drow["ms"],

@@ -111,8 +111,8 @@ def test_merge_and_extract_layer(tmp_path):
 
 def test_subpic_merge_and_extract(tmp_path):
     """Two streams merged as a 2x1 subpicture grid extract back to
-    themselves; the port refuses the merged stream (subpictures are
-    outside its slice) and decodes each extracted one."""
+    themselves; the port decodes the merged stream (the two pictures side
+    by side) and each extracted one."""
     a, _, ra = _port_stream(tmp_path, "a", n=1, seed=65)
     b, _, rb = _port_stream(tmp_path, "b", n=1, seed=66)
     got, want = _both(tmp_path, ["subpic-merge", str(a), str(b), "--grid",
@@ -120,8 +120,9 @@ def test_subpic_merge_and_extract(tmp_path):
     assert got == want
     merged = tmp_path / "m.bin"
     merged.write_bytes(got)
-    with pytest.raises(ValueError, match="subpictures"):
-        _decode(got)
+    out = _decode(got)
+    assert _same(out, [[np.concatenate([x[c], y[c]], 1) for c in range(3)]
+                       for x, y in zip(ra, rb)])
     for idx, src, rec in ((0, a, ra), (1, b, rb)):
         out, ref = _both(tmp_path, ["subpic-extract", "-b", str(merged),
                                     "--idx", str(idx), "-o", ""])
@@ -223,9 +224,7 @@ def test_cfg_driven_encode(tmp_path):
 # file's lines (RDOQ, rate control and the tools the slice lacks have no
 # flag; the cfg hands them to EncoderConfig as they are)
 _OUTSIDE = {
-    "bit-depth": ["--bit-depth", "10"], "ctu": ["--ctu", "128"],
-    "tiles": ["--tiles", "2x1"], "subpics": ["--subpics", "2x1"],
-    "cfg-tiles": "TileColumns : 2", "rc-bpf": "RateControl : 1\n"
+    "ctu": ["--ctu", "128"], "rc-bpf": "RateControl : 1\n"
     "TargetBitrate : 30000", "rdoq": "RDOQ : 0", "tskip": "TSM : 1",
     "jccr": "JointCbCr : 1", "ibc": "IBC : 1", "plt": "PLT : 1",
     "mctf": "TemporalFilter : 1"}
@@ -244,3 +243,43 @@ def test_options_outside_slice_raise(tmp_path, opt):
         tcli.main(["encode", "-i", str(src), "--wdt", "64", "--hgt", "64",
                    "-b", str(tmp_path / "o.bin"), "--device", "cpu",
                    *extra])
+
+
+# options that were outside the slice until 10-bit input, tiles and
+# subpictures were ported: a flag, or a cfg file's lines
+_NOW_IN = {
+    "bit-depth": ["--bit-depth", "10"], "tiles": ["--tiles", "2x1"],
+    "subpics": ["--subpics", "2x1"], "cfg-tiles": "TileColumns : 2"}
+
+
+@pytest.mark.parametrize("opt", list(_NOW_IN))
+def test_options_now_in_slice_encode(tmp_path, opt):
+    """The CLI's --bit-depth 10, --tiles, --subpics and a cfg file's
+    TileColumns encode 2 frames of 128x64 (IPPP) to the reference CLI's
+    bytes, and the port decodes them with the hashes verified.  Both CLIs
+    read a cfg file's TileColumns and do not apply it: its stream has no
+    tiles."""
+    frames = motion_frames(2, 64, 128, seed=2)
+    extra = _NOW_IN[opt]
+    bd = 10 if opt == "bit-depth" else 8
+    if bd == 10:
+        frames = [[(p << 2) | 1 for p in f] for f in frames]
+    src = tmp_path / "in.yuv"
+    yuv.write_yuv(str(src), frames, bd)
+    if isinstance(extra, str):
+        cfgf = tmp_path / "o.cfg"
+        cfgf.write_text(extra + "\n")
+        extra = ["-c", str(cfgf)]
+    outs = []
+    for tag, fn in (("port", tcli.main), ("ref", ref_main)):
+        out = tmp_path / f"{tag}.bin"
+        args = ["encode", "-i", str(src), "--wdt", "128", "--hgt", "64",
+                "-q", "32", "--ip", "0", "-b", str(out), *extra]
+        assert fn(args + (["--device", "cpu"] if tag == "port" else [])) \
+            == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    assert len(_decode(outs[0])) == 2
+    _, pps_map, _ = tenc._parse(outs[0], True)
+    assert {(p.num_tile_cols, p.num_tile_rows) for p in pps_map.values()} \
+        == {(2, 1) if opt == "tiles" else (1, 1)}

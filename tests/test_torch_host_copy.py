@@ -19,7 +19,8 @@ COPIED = ["core/__init__.py", "core/rom.py", "core/tables_spec.py",
           "cabac/native.py", "io/__init__.py", "io/yuv.py",
           "io/streamtools.py", "io/parcat.py", "io/filmgrain.py",
           "io/cfg.py", "pipeline/__init__.py", "pipeline/entropy.py",
-          "pipeline/plan.py", "kernels/__init__.py", "coding/__init__.py"] \
+          "pipeline/plan.py", "kernels/__init__.py", "coding/__init__.py",
+          "dist/__init__.py", "dist/subpic.py"] \
     + sorted(f"spec/{p.name}" for p in (REF / "spec").glob("*.py"))
 
 

@@ -67,8 +67,7 @@ def test_corrupt_stream_fails_hash():
         tenc.decode_sequence(bytes(bad), check_hash=True, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(jccr=True), dict(tile_cols=2),
-                                dict(subpic_cols=2),
+@pytest.mark.parametrize("kw", [dict(jccr=True),
                                 dict(tskip=True), dict(mctf=True),
                                 dict(rc_bits_per_frame=1000),
                                 dict(ibc=True, intra_period=0),
@@ -77,6 +76,20 @@ def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)
     with pytest.raises(ValueError, match="outside"):
         tenc.encode_sequence(frames, tseq.EncoderConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(tile_cols=2), dict(subpic_cols=2)])
+def test_config_now_in_slice_equals_spec_model(kw):
+    """A tile grid and a subpicture grid, outside the slice until 10-bit
+    input, tiles and subpictures were ported, encode the spec model's
+    bytes."""
+    frames = motion_frames(n=1)
+    cfg = tseq.EncoderConfig(**kw)
+    data, rec, _ = tenc.encode_sequence(frames, cfg, device="cpu")
+    sdata, srec, _ = tseq.encode_sequence(frames, cfg)
+    assert data == sdata
+    assert all(np.array_equal(a[c], b[c]) for a, b in zip(rec, srec)
+               for c in range(3))
 
 
 def test_default_device_is_cuda():

@@ -22,6 +22,7 @@ from vvctpu_torch.spec import sequence as tseq  # noqa: E402
 from test_affine import synth_zoom  # noqa: E402
 from test_amvr import moving_planes as amvr_planes  # noqa: E402
 from test_gpm import synth_motion  # noqa: E402
+from test_inter_parity import motion_frames  # noqa: E402
 from test_isp import synth  # noqa: E402
 from test_mip import smooth_planes  # noqa: E402
 from test_mmvd import moving_planes as mmvd_planes  # noqa: E402
@@ -155,22 +156,35 @@ def test_tool_config_equals_spec_model(case):
     assert _same(out, rec)
 
 
-@pytest.mark.parametrize("kw", [dict(mctf=True), dict(subpic_rows=2),
-                                dict(tile_rows=2),
+@pytest.mark.parametrize("kw", [dict(mctf=True),
                                 dict(ibc=True), dict(plt=True),
                                 dict(tskip=True), dict(jccr=True),
-                                dict(tile_cols=2), dict(ctu=128),
-                                dict(bit_depth=10)])
+                                dict(ctu=128), dict(bit_depth=12)])
 def test_tools_outside_slice_still_raise(kw):
     with pytest.raises(ValueError, match="outside"):
         tenc.check_config(tseq.EncoderConfig(intra_period=0, gop=4, **kw))
 
 
+@pytest.mark.parametrize("kw", [dict(subpic_rows=2), dict(tile_rows=2),
+                                dict(tile_cols=2), dict(bit_depth=10)])
+def test_tools_of_this_slice_accepted(kw):
+    """Subpictures, tiles and 10-bit input pass the config check, and a
+    2-frame 128x128 IPPP encode with them decodes with the hashes
+    verified."""
+    cfg = tseq.EncoderConfig(intra_period=0, gop=1, **kw)
+    tenc.check_config(cfg)
+    frames = motion_frames(2, 128, 128, seed=27)
+    if cfg.bit_depth == 10:
+        frames = [[p << 2 for p in f] for f in frames]
+    data, rec, _ = tenc.encode_sequence(frames, cfg, device="cpu")
+    out, _ = tenc.decode_sequence(data, check_hash=True, device="cpu")
+    assert _same(out, rec)
+
+
 @pytest.mark.parametrize("field,value", [
-    ("log2_ctu", 5), ("bit_depth", 12), ("tile_rows", None),
+    ("log2_ctu", 5), ("bit_depth", 12),
     ("ibc_enabled", True), ("plt_enabled", True), ("ts_enabled", True),
-    ("jccr_enabled", True), ("log2_ctu", 7), ("bit_depth", 10),
-    ("tiles", None)])
+    ("jccr_enabled", True), ("log2_ctu", 7)])
 def test_stream_outside_slice_still_raises(field, value):
     """The decoder's SPS/PPS check refuses what the slice leaves out and
     accepts the inter and intra toolsets, SBT, DQ, ALF, the multi-type
@@ -191,6 +205,27 @@ def test_stream_outside_slice_still_raises(field, value):
         sps = dataclasses.replace(sps, **{field: value})
     with pytest.raises(ValueError, match="outside"):
         tenc._check_sps(sps, pps)
+
+
+@pytest.mark.parametrize("field,value", [("tile_rows", None),
+                                         ("bit_depth", 10), ("tiles", None)])
+def test_stream_of_this_slice_accepted(field, value):
+    """The decoder's SPS/PPS check accepts 10-bit streams and tile grids,
+    and refuses tiles with WPP where the picture has more than one CTU
+    row, as the spec model does."""
+    from vvctpu_torch.spec import hls
+    sps = tseq.EncoderConfig(intra_period=0, gop=4).make_sps(128, 128)
+    pps = hls.PPS()
+    if field == "tiles":
+        pps = dataclasses.replace(pps, num_tile_cols=2)
+    elif field == "tile_rows":
+        pps = dataclasses.replace(pps, num_tile_rows=2)
+    else:
+        sps = dataclasses.replace(sps, **{field: value})
+    tenc._check_sps(sps, pps)
+    if pps.num_tile_cols * pps.num_tile_rows > 1:
+        with pytest.raises(ValueError, match="WPP"):
+            tenc._check_sps(sps, dataclasses.replace(pps, entropy_sync=True))
 
 
 @pytest.mark.parametrize("tools", [

@@ -14,14 +14,19 @@ extract, merge, subpic-extract, subpic-merge, filmgrain, info).
         -f 5 -b ra.bin
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq --lmcs -f 3 -b mtt.bin
+    python -m vvctpu_torch encode -i in10.yuv --wdt 3840 --hgt 2160 -q 32 \
+        --bit-depth 10 --ip 32 --gop 2 --tiles 2x2 -f 3 -b c5.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \
+        --subpics 2x1 -f 3 -b sp.bin
     python -m vvctpu_torch encode -c encoder_randomaccess.cfg -c seq.cfg
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
     python -m vvctpu_torch info -b out.bin
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
-device (CUDA by default).  Options outside the port's slice (10-bit, CTU
-128, tiles, subpictures; from a cfg file also RDOQ off, rate control, TS,
-JCCR, IBC, palette and MCTF) are refused with the encoder's ValueError.
+device (CUDA by default).  Options outside the port's slice (CTU 128;
+from a cfg file also RDOQ off, rate control, TS, JCCR, IBC, palette and
+MCTF) are refused with the encoder's ValueError, and so are tiles with
+WPP on a picture of more than one CTU row.
 """
 from __future__ import annotations
 
@@ -75,8 +80,8 @@ def _apply_cfg(args, defaults) -> dict:
     for a in ("qp", "intra_period", "gop", "bit_depth", "wpp", *_TOOLS):
         if defaults[a] == getattr(args, a):
             setattr(args, a, getattr(fc, a))
-    if args.tiles == defaults["tiles"]:
-        args.tiles = f"{fc.tile_cols}x{fc.tile_rows}"
+    # a file's TileColumns and TileRows are read and not applied, as in
+    # the reference CLI: only --tiles sets the tile grid
     return dict(rdoq=fc.rdoq, rc_bits_per_frame=rc_bits_per_frame(fc),
                 tskip=fc.tskip, jccr=fc.jccr, ibc=fc.ibc, plt=fc.plt,
                 mctf=fc.mctf)

@@ -54,8 +54,8 @@ SPLIT = 2
 
 # kernel launches since the count was last set to 0
 launches = 0
-# None, or a list to which each launch appends its number of keys (7, or
-# 11 with the TT stripes)
+# None, or a list to which each launch appends (its number of keys (7, or
+# 11 with the TT stripes), the frame's height, its width)
 trace = None
 
 _LIB = None
@@ -129,7 +129,7 @@ def me_sad(orig, refp, lam: int, *, tt: bool = False):
         raise RuntimeError(f"me_sad launch failed: cudaError {err}")
     launches += 1
     if trace is not None:
-        trace.append(len(keys))
+        trace.append((len(keys), H, W))
     res, o = [], 0
     for nby, nbx in grids:
         blk = out[:, o:o + nby * nbx].reshape(3, nby, nbx)

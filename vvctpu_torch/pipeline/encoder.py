@@ -2,19 +2,26 @@
 
 Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
 P and random access (hierarchical B, any ``gop`` and ``intra_period``),
-one tile, CTU 64, the default toolset plus the multi-type tree (BT and
-TT splits) and VVC's intra toolset (MTS, LFNST, ISP, MIP, MRL, CCLM) in
-every slice type and its inter toolset (BCW, CIIP, GPM, affine with
-PROF, DMVR, BDOF, MMVD, AMVR, SMVD, SBT; DMVR and BDOF in BI-symmetric
-pictures only), dependent quantization, LMCS (one model per frame,
-derived on the host from the source luma and signalled in its slice
-header) and ALF with CC-ALF (parameters derived on the host, filters on
-the device).  All-intra frames are reconstructed in groups of up to
-eight per frame-batched wave; one temporal layer's B frames are decided
-frame by frame and reconstructed in one frame-batched wave, each frame
-with its own LMCS model.  The bitstreams are byte-identical to the spec
-model's and, where the reference engine agrees with it, to the
-reference engine's.  Anything outside the slice raises.
+8- or 10-bit samples, CTU 64, uniform tile grids (every tile of every
+frame of a group one member of the frame-batched wave, its motion
+compensation reading the frame's full reference at the tile's offset;
+decisions and loop filters over the whole frame, as in the reference)
+and subpicture grids (one independent encode per subpicture, merged as
+layers, as the reference's dist/subpic.py does), the default toolset
+plus the multi-type tree (BT and TT splits) and VVC's intra toolset
+(MTS, LFNST, ISP, MIP, MRL, CCLM) in every slice type and its inter
+toolset (BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR,
+SMVD, SBT; DMVR and BDOF in BI-symmetric pictures only), dependent
+quantization, LMCS (one model per frame, derived on the host from the
+source luma and signalled in its slice header) and ALF with CC-ALF
+(parameters derived on the host, filters on the device).  All-intra
+frames are reconstructed in groups of up to eight per frame-batched
+wave; one temporal layer's B frames are decided frame by frame and
+reconstructed in one frame-batched wave, each frame with its own LMCS
+model.  The bitstreams are byte-identical to the reference engine's
+and, where the spec model agrees with it, to the spec model's (at 10
+bits they part: the spec model's sub-pel refinement clamps its
+prediction at 8 bits).  Anything outside the slice raises.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from .. import device as devmod
 from ..coding import decide as tdecide
 from ..core import bitstream as bs
 from ..core import trace as _trace
+from ..dist.subpic import decode_subpics, encode_subpics, subpic_rects
 from ..kernels import loopfilter as lfk
 from ..spec import alf as salf
 from ..spec import codec as scodec
@@ -49,34 +57,36 @@ _GROUP = 8
 def check_config(cfg: sseq.EncoderConfig) -> None:
     """Raise ValueError for a configuration outside this slice."""
     bad = [t for t in _OFF_TOOLS if getattr(cfg, t)]
-    if cfg.tile_cols * cfg.tile_rows != 1:
-        bad.append("tiles")
-    if cfg.subpic_cols * cfg.subpic_rows != 1:
-        bad.append("subpictures")
     if cfg.rc_bits_per_frame:
         bad.append("rate control")
     if not cfg.rdoq:
         bad.append("rdoq=False")
     if cfg.ctu != 64:
         bad.append(f"ctu={cfg.ctu}")
-    if cfg.bit_depth != 8:
+    if cfg.bit_depth not in (8, 10):
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
-        raise ValueError("outside the PyTorch port's slice (one tile, CTU "
-                         "64, 8-bit, RDOQ on; no IBC, palette, TS, JCCR or "
-                         "MCTF): "
-                         + ", ".join(bad))
+        raise ValueError("outside the PyTorch port's slice (CTU 64, 8 or "
+                         "10 bits, RDOQ on; no rate control, IBC, palette, "
+                         "TS, JCCR or MCTF): " + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
     bad = [t for t in _SPS_OFF if getattr(sps, f"{t}_enabled")]
-    if sps.log2_ctu != 6 or sps.bit_depth != 8:
+    if sps.log2_ctu != 6 or sps.bit_depth not in (8, 10):
         bad.append("ctu/bit depth")
-    if pps.num_tile_cols * pps.num_tile_rows != 1:
-        bad.append("tiles")
     if bad:
         raise ValueError("stream outside the PyTorch port's slice: "
                          + ", ".join(bad))
+    _check_tiles(sps, pps)
+
+
+def _check_tiles(sps: hls.SPS, pps: hls.PPS) -> None:
+    """Tiles and WPP are exclusive where the picture has more than one CTU
+    row, as in the spec model."""
+    if (pps.num_tile_cols * pps.num_tile_rows > 1 and pps.entropy_sync
+            and sps.height >> sps.log2_ctu > 1):
+        raise ValueError("tiles + WPP combination not supported")
 
 
 def _wave_tools(sps: hls.SPS, sym: bool) -> dict:
@@ -107,27 +117,79 @@ def _lmcs_luts(cw, bd: int):
     return fwd, inv, slmcs.build_crs_lut(cw, bd)
 
 
-def _wave_frame(sps, dec, py, pcb, pcr, dpb, ref_pocs, device, luts=None):
-    """frame_wave_batch input of one frame: slot tables, the planes on the
-    device and, for inter frames, the phase-A rows (per square size and
-    per rect shape of the multi-type tree) and the padded device
-    reference planes (three per list); with LMCS (``luts`` from
+def _wave_frame(sps, pps, dec, py, pcb, pcr, dpb, ref_pocs, device,
+                luts=None):
+    """frame_wave_batch members of one frame, one per tile (the whole
+    frame without tiles): each with its rect, slot tables of its part of
+    the decisions, its part of the planes on the device and, for inter
+    frames, the phase-A rows (per square size and per rect shape of the
+    multi-type tree), the frame's padded device reference planes (three
+    per list) and the tile's offset in them; with LMCS (``luts`` from
     _lmcs_luts) the frame's forward and CRS LUTs."""
     def up(p):
         return torch.as_tensor(np.ascontiguousarray(p, np.int32),
                                device=device)
 
-    fr = dict(py=up(py), pcb=up(pcb), pcr=up(pcr))
-    if luts is not None:
-        fr["fwd_lut"], fr["crs_lut"] = up(luts[0]), up(luts[2])
-    if ref_pocs:
-        fr["slots"], fr["inter"] = recon.make_slots_split(
-            dec, sps.height, sps.width, 1 << sps.log2_ctu)
-        fr["refs"] = tuple(p for r in ref_pocs for p in dpb[r])
-    else:
-        fr["slots"] = recon.make_slots(dec, sps.height, sps.width,
-                                       1 << sps.log2_ctu)
-    return fr
+    planes = (up(py), up(pcb), up(pcr))
+    lut = {} if luts is None else dict(fwd_lut=up(luts[0]),
+                                       crs_lut=up(luts[2]))
+    rects = subpic_rects(sps.width, sps.height, pps.num_tile_cols,
+                         pps.num_tile_rows, 1 << sps.log2_ctu)
+    ctu = 1 << sps.log2_ctu
+    members = []
+    for rect in rects:
+        x0, y0, x1, y1 = rect
+        tdec = dec if len(rects) == 1 else scodec.tile_decisions_view(
+            dec, x0, y0, x1, y1)
+        fr = dict(rect=rect, py=planes[0][y0:y1, x0:x1],
+                  pcb=planes[1][y0 // 2:y1 // 2, x0 // 2:x1 // 2],
+                  pcr=planes[2][y0 // 2:y1 // 2, x0 // 2:x1 // 2], **lut)
+        if ref_pocs:
+            fr["slots"], fr["inter"] = recon.make_slots_split(
+                tdec, y1 - y0, x1 - x0, ctu)
+            fr["refs"] = tuple(p for r in ref_pocs for p in dpb[r])
+            fr["rox"], fr["roy"] = x0, y0
+        else:
+            fr["slots"] = recon.make_slots(tdec, y1 - y0, x1 - x0, ctu)
+        members.append(fr)
+    return members
+
+
+# 8x8-granule factor of each frame_wave_batch output (recon and levels
+# of Y, Cb, Cr, then the four tool planes)
+_OUT_SCALE = (1, 2, 2, 1, 2, 2, 8, 8, 8, 8)
+
+
+def _wave(frames_m, sps, **kw):
+    """frame_wave_batch over the members of several frames (_wave_frame):
+    one call per tile size, with every tile of that size of every frame,
+    the tiles of frame i sharing reference index i; each frame's tiles
+    are then written into its full planes.  Returns a frame_wave_batch
+    10-tuple per frame."""
+    geo = {}
+    for i, members in enumerate(frames_m):
+        for j, m in enumerate(members):
+            x0, y0, x1, y1 = m["rect"]
+            geo.setdefault((x1 - x0, y1 - y0), []).append((i, j))
+    res = {}
+    for (tw, th), idx in geo.items():
+        res.update(zip(idx, wave.frame_wave_batch(
+            [dict(frames_m[i][j], ref_idx=i) for i, j in idx], frame_w=tw,
+            frame_h=th, log2_ctu=sps.log2_ctu, **kw)))
+    outs = []
+    for i, members in enumerate(frames_m):
+        if len(members) == 1:
+            outs.append(res[i, 0])
+            continue
+        t0 = res[i, 0]
+        full = [t.new_zeros((sps.height // g, sps.width // g))
+                for t, g in zip(t0, _OUT_SCALE)]
+        for j, m in enumerate(members):
+            x0, y0, x1, y1 = m["rect"]
+            for a, t, g in zip(full, res[i, j], _OUT_SCALE):
+                a[y0 // g:y1 // g, x0 // g:x1 // g] = t
+        outs.append(tuple(full))
+    return outs
 
 
 def _tid(stype, qpd: int) -> int:
@@ -167,12 +229,23 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
     layer_times: optional dict that receives the wall seconds spent on
     each temporal layer (keys "layer <temporal id>"); decisions_out:
     optional list that receives each frame's FrameDecisions in coding
-    order, as the reference's does."""
+    order, as the reference's does (with subpictures, each subpicture's
+    frames after the previous subpicture's)."""
     check_config(cfg)
     dev = devmod.resolve(device)
+    if cfg.subpic_cols * cfg.subpic_rows > 1:
+        # one independent encode per subpicture, one after the other on
+        # the one card
+        return encode_subpics(
+            frames, cfg, lambda fr, c: encode_sequence(
+                fr, c, device=dev, stage_times=stage_times,
+                layer_times=layer_times, decisions_out=decisions_out),
+            threads=False)
     h, w = frames[0][0].shape
     sps = cfg.make_sps(w, h)
-    pps = hls.PPS(init_qp=cfg.qp, entropy_sync=cfg.wpp)
+    pps = hls.PPS(init_qp=cfg.qp, entropy_sync=cfg.wpp,
+                  num_tile_cols=cfg.tile_cols, num_tile_rows=cfg.tile_rows)
+    _check_tiles(sps, pps)
     nals = [bs.NalUnit(bs.NAL_SPS, sps.write()),
             bs.NalUnit(bs.NAL_PPS, pps.write())]
     recons = [None] * len(frames)
@@ -274,14 +347,12 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
                 luts = _lmcs_luts(cw, cfg.bit_depth)
                 py = luts[0][padded[0]]
         models.append((cw, None if luts is None else luts[1]))
-        frs.append(_wave_frame(sps, dec, py, padded[1], padded[2], dpb,
-                               ref_pocs, dev, luts))
+        frs.append(_wave_frame(sps, pps, dec, py, padded[1], padded[2],
+                               dpb, ref_pocs, dev, luts))
     with _stage("wave", stage_times, dev):
-        outs = wave.frame_wave_batch(
-            frs, frame_w=sps.width, frame_h=sps.height,
-            log2_ctu=sps.log2_ctu, qp=qp, bd=cfg.bit_depth, encode=True,
-            rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp),
-            **_wave_tools(sps, _sym(grp[0][0], grp[0][2])))
+        outs = _wave(frs, sps, qp=qp, bd=cfg.bit_depth, encode=True,
+                     rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp),
+                     **_wave_tools(sps, _sym(grp[0][0], grp[0][2])))
     # every frame's filters are launched before the group's first entropy
     # job starts on the worker thread, which would slow their many small
     # launches on this one (1080p all-intra on an H100: 9 s against 0.1 s)
@@ -387,8 +458,12 @@ def decode_sequence(data: bytes, check_hash: bool = True, device=None,
     on a hash mismatch.  stage_times, layer_times: as in encode_sequence."""
     from ..io import streamtools
     dev = devmod.resolve(device)
-    if streamtools.subpic_layout(data) is not None:
-        raise ValueError("subpictures are not in this slice")
+    layout = streamtools.subpic_layout(data)
+    if layout is not None:
+        return decode_subpics(
+            data, layout, lambda d, ch: decode_sequence(
+                d, check_hash=ch, device=dev, stage_times=stage_times,
+                layer_times=layer_times), check_hash)
     with _stage("parse", stage_times):
         sps, pps_map, entries = _parse(data, check_hash)
     frames, dpb = {}, {}
@@ -501,14 +576,13 @@ def _decode_group(grp, sps, pps_map, dpb, device, stage_times):
     qp = pps_map[sh.pps_id].init_qp + sh.qp_delta
     luts = [_lmcs_luts(e["sh"].lmcs_cw, sps.bit_depth)
             if e["sh"].lmcs_cw else None for e in grp]
-    frs = [_wave_frame(sps, e["dec"], *e["levels"], dpb,
+    frs = [_wave_frame(sps, pps_map[e["sh"].pps_id], e["dec"],
+                       *e["levels"], dpb,
                        e["sh"].ref_pocs if sh.slice_type != hls.SLICE_I
                        else (), device, lt) for e, lt in zip(grp, luts)]
     with _stage("wave", stage_times, device):
-        outs = wave.frame_wave_batch(
-            frs, frame_w=sps.width, frame_h=sps.height,
-            log2_ctu=sps.log2_ctu, qp=qp, bd=sps.bit_depth, encode=False,
-            **_wave_tools(sps, scodec.bi_sym(sh)))
+        outs = _wave(frs, sps, qp=qp, bd=sps.bit_depth, encode=False,
+                     **_wave_tools(sps, scodec.bi_sym(sh)))
     return [(e, _dec_filters(e, sps, list(out[:3]), qp, dpb, stage_times,
                              device, None if lt is None else lt[1]))
             for e, out, lt in zip(grp, outs, luts)]

@@ -158,6 +158,19 @@ def _scatter(buf, blocks, f, xs, ys, w: int, h: int, off: int):
     buf[_index(f, xs + off, ys + off, w, h)] = blocks
 
 
+def ref_at(carry, f, x, y):
+    """(reference stack index, x, y) of blocks of members ``f`` at (x, y)
+    in their members' planes: a tile's blocks read the full reference
+    picture at the tile's offset (twin of the reference's rox/roy).
+    carry["roff"] is None or the (F, 3) [stack index, x offset, y offset]
+    of each member (frame_wave_batch); None is the identity."""
+    ro = carry.get("roff")
+    if ro is None:
+        return f, x, y
+    o = ro[f.long()]
+    return o[:, 0], x + o[:, 1], y + o[:, 2]
+
+
 def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
                       encode: bool, rdoq: bool = False, lam_rd: int = 0,
                       dmvr: bool = False, bdof: bool = False,
@@ -173,7 +186,8 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
     ib_slots: (B, 14) int32 numpy rows of
     make_slots_split plus the frame index in column 13, whose padded rows
     (x = y = 2^20) are dropped here on the host; refs: the padded (l0 y,
-    cb, cr, l1 y, cb, cr) reference planes, each an (F, Hp, Wp) stack.
+    cb, cr, l1 y, cb, cr) reference planes, each a stack that ref_at
+    indexes (one plane per member without carry["roff"]).
     Column 6 picks L0, L1 or BI; BI is the BCW average by column 7 or,
     with ``gpm``, the mask blend of partition column 9.  With ``dmvr`` or
     ``bdof`` the BI leaves of equal weight outside GPM are refined per
@@ -194,6 +208,8 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
     slots = torch.as_tensor(np.ascontiguousarray(rows), device=dev)
     cs = s // 2
     x, y, f = slots[:, 0], slots[:, 1], slots[:, 13]
+    at = ref_at(carry, f, x, y)
+    rf, ax, ay = at
     m0x, m0y, m1x, m1y = (slots[:, c] for c in (2, 3, 4, 5))
     d = slots[:, 6, None, None]
     mx = (1 << bd) - 1
@@ -213,18 +229,18 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
 
     def pred(ref0, ref1, px, py, sz, luma):
         fn = mc.mc_luma_block if luma else mc.mc_chroma_block
-        p0 = fn(ref0, px, py, sz, m0x, m0y, bd, f=f)
+        p0 = fn(ref0, px, py, sz, m0x, m0y, bd, f=rf)
         if not any_l1:
             return p0
-        p1 = fn(ref1, px, py, sz, m1x, m1y, bd, f=f)
+        p1 = fn(ref1, px, py, sz, m1x, m1y, bd, f=rf)
         gwm = None if gw_l is None else (gw_l if luma
                                          else gw_l[:, ::2, ::2])
         return torch.where(d == 0, p0, torch.where(d == 1, p1,
                                                    blend(p0, p1, gwm)))
 
-    pred_y = pred(refs[0], refs[3], x, y, s, True)
-    pred_cb = pred(refs[1], refs[4], x // 2, y // 2, cs, False)
-    pred_cr = pred(refs[2], refs[5], x // 2, y // 2, cs, False)
+    pred_y = pred(refs[0], refs[3], ax, ay, s, True)
+    pred_cb = pred(refs[1], refs[4], ax // 2, ay // 2, cs, False)
+    pred_cr = pred(refs[2], refs[5], ax // 2, ay // 2, cs, False)
     dmvr = dmvr and s >= DMVR_SUB     # DMVR refines 16x16 sub-blocks
     if dmvr or bdof:
         # BI leaves of equal weight outside GPM (the others keep the
@@ -234,7 +250,7 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
         if ri.size:
             _refine_bi(pred_y, pred_cb, pred_cr, slots,
                        torch.as_tensor(ri, device=dev), refs, s,
-                       DMVR_SUB if dmvr else s, dmvr, bdof, bd)
+                       DMVR_SUB if dmvr else s, dmvr, bdof, bd, at)
     if affine and s >= AFF_MIN_SIZE:
         for lst in (0, 1):
             # L0 for direction 0, else L1, as in the reference
@@ -243,7 +259,7 @@ def _inter_batch_pass(carry, ib_slots, refs, s: int, qp: int, bd: int,
             if ai.size:
                 _affine_override(pred_y, pred_cb, pred_cr, slots,
                                  torch.as_tensor(ai, device=dev),
-                                 refs[3 * lst:3 * lst + 3], s, bd)
+                                 refs[3 * lst:3 * lst + 3], s, bd, at)
     # LMCS: the final luma prediction is forward-mapped; the residual is
     # coded and the leaf reconstructed in the mapped domain
     pred_y = fwd_map(carry.get("fwd"), f, pred_y)
@@ -295,6 +311,7 @@ def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
     slots = torch.as_tensor(np.ascontiguousarray(rows), device=dev)
     cw, ch = w // 2, h // 2
     x, y, f = slots[:, 0], slots[:, 1], slots[:, 7]
+    rf, ax, ay = ref_at(carry, f, x, y)
     m0x, m0y, m1x, m1y = (slots[:, c] for c in (2, 3, 4, 5))
     d = slots[:, 6, None, None]
     mx = (1 << bd) - 1
@@ -302,15 +319,15 @@ def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
 
     def pred(ref0, ref1, px, py, pw, ph, luma):
         fn = mc.mc_luma_block if luma else mc.mc_chroma_block
-        p0 = fn(ref0, px, py, pw, m0x, m0y, bd, h=ph, f=f)
+        p0 = fn(ref0, px, py, pw, m0x, m0y, bd, h=ph, f=rf)
         if not any_l1:
             return p0
-        p1 = fn(ref1, px, py, pw, m1x, m1y, bd, h=ph, f=f)
+        p1 = fn(ref1, px, py, pw, m1x, m1y, bd, h=ph, f=rf)
         avg = ((p0 + p1 + 1) >> 1).clamp(max=mx)
         return torch.where(d == 0, p0, torch.where(d == 1, p1, avg))
 
     pred_y = fwd_map(carry.get("fwd"), f,
-                     pred(refs[0], refs[3], x, y, w, h, True))
+                     pred(refs[0], refs[3], ax, ay, w, h, True))
     ry, lvy = _component(carry["sy"], pred_y, f, x, y, w, h, qp, bd, encode,
                          rdoq, lam_rd, dq)
     _scatter(carry["by"], ry, f, x, y, w, h, 1)
@@ -318,8 +335,8 @@ def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
         _scatter(carry["ly"], lvy, f, x, y, w, h, 0)
     sc = crs_scale(carry.get("crs"), f, ry, w, h)
     for c, r0, r1 in (("cb", refs[1], refs[4]), ("cr", refs[2], refs[5])):
-        rc, lvc = _component(carry["s" + c], pred(r0, r1, x // 2, y // 2, cw,
-                                                  ch, False),
+        rc, lvc = _component(carry["s" + c], pred(r0, r1, ax // 2, ay // 2,
+                                                  cw, ch, False),
                              f, x // 2, y // 2, cw, ch, qp, bd, encode, rdoq,
                              lam_rd, dq, sc)
         _scatter(carry["b" + c], rc, f, x // 2, y // 2, cw, ch, 1)
@@ -328,15 +345,15 @@ def _inter_batch_pass_rect(carry, ib_slots, refs, w: int, h: int, qp: int,
 
 
 def _refine_bi(pred_y, pred_cb, pred_cr, slots, ri, refs, s: int, sub: int,
-               dmvr: bool, bdof: bool, bd: int):
+               dmvr: bool, bdof: bool, bd: int, at):
     """DMVR / BDOF predictions of the BI leaves ``ri`` (rows of ``slots``,
     all of equal weight and outside GPM), written into the prediction
     batches in place: per sub x sub sub-block the mirrored integer offset
     (with ``dmvr``), the (sub+2)-extended luma predictions, the BDOF
     blend (with ``bdof``, else the rounded average), and the chroma
-    average at the offset MVs."""
+    average at the offset MVs.  at: ref_at of every row of ``slots``."""
     sl = slots[ri]
-    x, y, f = sl[:, 0], sl[:, 1], sl[:, 13]
+    f, x, y = (a[ri] for a in at)
     m0x, m0y, m1x, m1y = (sl[:, c] for c in (2, 3, 4, 5))
     mx = (1 << bd) - 1
     cs2 = sub // 2
@@ -370,13 +387,14 @@ def _refine_bi(pred_y, pred_cb, pred_cr, slots, ri, refs, s: int, sub: int,
 
 
 def _affine_override(pred_y, pred_cb, pred_cr, slots, ai, refs3, s: int,
-                     bd: int):
+                     bd: int, at):
     """Affine predictions (per-4x4 MC with PROF in luma) of the leaves
     ``ai`` from one list's (y, cb, cr) references, written into the
     prediction batches in place; CPMV0 is the list's MV (columns 2-3 for
-    direction 0, else 4-5), the dmv columns 11-12."""
+    direction 0, else 4-5), the dmv columns 11-12; at: ref_at of every
+    row of ``slots``."""
     sl = slots[ai]
-    x, y, f = sl[:, 0], sl[:, 1], sl[:, 13]
+    f, x, y = (a[ai] for a in at)
     l1 = sl[:, 6] != 0
     bmx = torch.where(l1, sl[:, 4], sl[:, 2])
     bmy = torch.where(l1, sl[:, 5], sl[:, 3])

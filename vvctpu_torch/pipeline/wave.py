@@ -406,6 +406,7 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     the mapped domain, as the recon buffer does) and the chroma residual
     scaled by each leaf's CRS scale."""
     x, y, f = rows[:, 1], rows[:, 2], rows[:, 16]
+    rf, ax, ay = recon.ref_at(carry, f, x, y)
     mvx, mvy, m1x, m1y = rows[:, 4], rows[:, 5], rows[:, 11], rows[:, 12]
     dd = rows[:, 13, None, None]
     w = const(mc.BCW_W_NP, rows.device)[rows[:, 14].clamp(0, 2).long()][
@@ -413,12 +414,11 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     n_ctu_x = frame_w >> log2_ctu
     cs = s // 2
     mx = (1 << bd) - 1
-    F = carry["bcb"].shape[0]
 
     def mcpred(r0, r1, px, py, sz, luma):
         fn = mc.mc_luma_block if luma else mc.mc_chroma_block
-        p0 = fn(r0, px, py, sz, mvx, mvy, bd, f=f)
-        p1 = fn(r1, px, py, sz, m1x, m1y, bd, f=f)
+        p0 = fn(r0, px, py, sz, mvx, mvy, bd, f=rf)
+        p1 = fn(r1, px, py, sz, m1x, m1y, bd, f=rf)
         avg = ((w * p0 + (8 - w) * p1 + 4) >> 3).clamp(0, mx)
         return torch.where(dd == 0, p0, torch.where(dd == 1, p1, avg))
 
@@ -433,7 +433,7 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
                                   s=sz, is_luma=luma, bd=bd)
 
     mc_y = recon.fwd_map(carry.get("fwd"), f,
-                         mcpred(refs[0], refs[3], x, y, s, True))
+                         mcpred(refs[0], refs[3], ax, ay, s, True))
     pred_y = ((mc_y + planar(carry["by"], x, y, f, s, True) + 1)
               >> 1).clamp(0, mx)
     rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
@@ -441,8 +441,8 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
     sc = recon.crs_scale(carry.get("crs"), f, rec_y, s, s, reps=2)
     # Cb and Cr as one batch of 2B rows over the stacked chroma planes
     x2, y2, f2 = _chroma_rows(carry, f, x, y)
-    mc_c = torch.cat([mcpred(refs[1], refs[4], x // 2, y // 2, cs, False),
-                      mcpred(refs[2], refs[5], x // 2, y // 2, cs, False)])
+    mc_c = torch.cat([mcpred(refs[1], refs[4], ax // 2, ay // 2, cs, False),
+                      mcpred(refs[2], refs[5], ax // 2, ay // 2, cs, False)])
     pred_c = ((mc_c + planar(carry["bc"], x2, y2, f2, cs, False) + 1)
               >> 1).clamp(0, mx)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
@@ -545,19 +545,25 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     """Reconstruct F mutually independent frames of one slice type and QP
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
-    frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter] [,
-    fwd_lut, crs_lut]} as frame_wave takes them; the planes are int32
-    tensors on the device all frames share.  With LMCS every frame
-    carries its own model's forward and CRS LUTs (2^bd entries), and
-    ``py`` is its forward-mapped source luma when encoding: the luma is
-    reconstructed in the mapped domain, inter predictions are
-    forward-mapped and chroma residuals scaled.  Frames with and without
-    LMCS are not mixed in one call.  mts, lfnst, cclm, mip: the SPS intra
-    tools (MRL and ISP are read from the slot rows); ciip: the CIIP leaf
-    class of phase B; dmvr, bdof, gpm, affine: phase A's inter tools
-    (DMVR and BDOF only for BI-symmetric frames, as the callers gate
-    them); sbt: SBT in phase A; dq: dependent quantization in every leaf
-    class.  The rectangular (BT and TT) leaves of the multi-type tree run
+    frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter [,
+    ref_idx, rox, roy]] [, fwd_lut, crs_lut]} as frame_wave takes them;
+    the planes are int32 tensors on the device all frames share.  A
+    member may be one tile of a frame: its planes and slots are the
+    tile's, frame_w and frame_h its size (every member of a call has the
+    same), and its motion compensation reads the frame's full reference
+    pictures ``refs`` at the tile's offset (rox, roy); members with the
+    same ``ref_idx`` (by default the member's position) give the same
+    ``refs`` and share one slot of the reference stacks.  With LMCS
+    every frame carries its own model's forward and CRS LUTs (2^bd
+    entries), and ``py`` is its forward-mapped source luma when
+    encoding: the luma is reconstructed in the mapped domain, inter
+    predictions are forward-mapped and chroma residuals scaled.  Frames
+    with and without LMCS are not mixed in one call.  mts, lfnst, cclm,
+    mip: the SPS intra tools (MRL and ISP are read from the slot rows);
+    ciip: the CIIP leaf class of phase B; dmvr, bdof, gpm, affine: phase
+    A's inter tools (DMVR and BDOF only for BI-symmetric frames, as the
+    callers gate them); sbt: SBT in phase A; dq: dependent quantization
+    in every leaf class.  The rectangular (BT and TT) leaves of the multi-type tree run
     in phase A (inter, the rect arrays of make_slots_split in ``inter``)
     and phase B (intra) wherever the slot tables hold them.  Returns a
     list of per-frame 10-tuples, each equal to frame_wave's for that
@@ -598,10 +604,20 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         carry["fwd"], carry["crs"] = stack("fwd_lut"), stack("crs_lut")
     refs = None
     if frames_in[0].get("refs") is not None:
-        # a P frame's three planes serve both lists
-        six = [tuple(fr["refs"]) * (2 if len(fr["refs"]) == 3 else 1)
-               for fr in frames_in]
+        # one stack slot per reference index the members give (a P
+        # frame's three planes serve both lists)
+        slot, six = {}, []
+        for f, fr in enumerate(frames_in):
+            if fr.get("ref_idx", f) not in slot:
+                slot[fr.get("ref_idx", f)] = len(six)
+                six.append(tuple(fr["refs"])
+                           * (2 if len(fr["refs"]) == 3 else 1))
         refs = tuple(torch.stack([r[i] for r in six]) for i in range(6))
+        roff = [(slot[fr.get("ref_idx", f)], fr.get("rox", 0),
+                 fr.get("roy", 0)) for f, fr in enumerate(frames_in)]
+        if roff != [(f, 0, 0) for f in range(F)]:
+            carry["roff"] = torch.as_tensor(roff, dtype=torch.int32,
+                                            device=dev)
         for s_sz in (8, 16, 32):
             recon._inter_batch_pass(carry, _frame_rows(frames_in, s_sz),
                                     refs, s_sz, qp, bd, encode, rdoq, lam_rd,
