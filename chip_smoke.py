@@ -112,12 +112,30 @@ Phases, in order; any failure exits non-zero:
    launches at 2176x3840, with stage and per-layer times, the phase-B
    batches, fps, the card's busy share and peak memory.
 
-After phase 4 the script runs in three processes, each on a CUDA
-context of its own: phase 5 in the first, phases 7 and 8 in a second,
-phases 9 and 6 in a third.  So the walls and card busy shares of phases
-5 to 9 are measured with the others running (the card's busy share is
-the device's); the lines of phases 9 and 6, then 7 and 8, print after
-phase 5's.
+10. transform skip, joint Cb-Cr residuals, MCTF and rate control: (10a)
+   test_tskip.py's two configurations, test_jccr.py's with CCLM off
+   and on, test_apps.py's rate-control and MCTF configurations, the
+   four tools with 6a's toolset, MTT, TT and LMCS on a 64x64 clip and on
+   6a's 64x256 clip, encoded on the card, must equal the spec model's
+   bitstream and decisions and decode on the card and in the spec
+   model, hashes verified, with TS and JCCR chosen where they are on;
+   the MCTF prefilter on 5 frames of 416x240 on the card must equal the
+   spec model's; (10b) 8b's configuration with TS, JCCR, MCTF and rate
+   control at 600000 bits/frame on 3 frames of 1080p: MCTF leaves the
+   1080-row frames unchanged, the controller moves the QP, hashes
+   verified, recon == decoded, 3 me_sad launches at 11 keys, with the
+   per-frame QPs, bits and PSNR, stage and per-layer times; (10c) the
+   MCTF prefilter on 3 frames of config #5's 4K 10-bit source, timed on
+   the card (4 me_sad launches at lam 0), me_sad held against its twin
+   at lam 0 on one of its searches and its blend against the spec
+   model's arithmetic given the card's motion.
+
+After phase 4 the script runs in four processes, each on a CUDA context
+of its own: phase 5 in the first, phases 7 and 8 in a second, phases 9
+and 6 in a third, phases 3 and 10 in a fourth.  So the walls and card
+busy shares of phases 3 and 5 to 10 are measured with the others running
+(the card's busy share is the device's); the lines of phases 7 and 8,
+then 9 and 6, then 3 and 10 print after phase 5's.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -653,6 +671,31 @@ def _spec_clips():
                           intra_period=0)),
         "subpic22": (motion_frames(2, 100, 150, seed=24),
                      dict(qp=34, subpic_cols=2, subpic_rows=2)),
+        # phase 10: test_tskip.py:76 and :96, test_jccr.py:59 with CCLM
+        # off and on, test_apps.py:102 (rate control) and :135 (MCTF), the
+        # four tools with MTT, TT and LMCS on a 64x64 clip and on 6a's,
+        # and the MCTF prefilter alone at config #1's size
+        "ts_tools": ([screen_planes(64, 128, seed=6)],
+                     dict(qp=32, sao=False, deblock=False, tskip=True,
+                          mts=True, lfnst=True, mip=True)),
+        "ts_alone": ([screen_planes(64, 128, seed=8)],
+                     dict(qp=24, sao=False, deblock=False, tskip=True)),
+        "jccr": ([corr_chroma_planes(64, 128, seed=7)],
+                 dict(qp=32, sao=False, deblock=False, jccr=True,
+                      cclm=False, mts=True, mip=True)),
+        "jccr_cclm": ([corr_chroma_planes(64, 128, seed=7)],
+                      dict(qp=32, sao=False, deblock=False, jccr=True,
+                           cclm=True, mts=True, mip=True)),
+        "rc": (motion_frames(4, 64, 64, seed=96),
+               dict(qp=26, intra_period=0, rc_bits_per_frame=1200)),
+        "mctf": (motion_frames(4, 64, 64, seed=98),
+                 dict(qp=32, intra_period=0, gop=2, mctf=True)),
+        "ctc": (ctc_frames(), dict(qp=27, intra_period=0, gop=2,
+                                   rc_bits_per_frame=4000, **CTC_SMALL)),
+        "ctc_6a": (tool_frames(), dict(qp=27, intra_period=0, gop=4,
+                                       rc_bits_per_frame=12000,
+                                       **CTC_SMALL)),
+        "mctf416": (synth_frames(5, 240, 416, seed=6), dict(filter_gop=4)),
     }
 
 
@@ -661,9 +704,14 @@ def _spec_run(name):
     hashes verified: (bytes, decisions, decoded planes, seconds taken).
     Host work only, so main() runs it in worker processes beside the
     card's phases."""
+    from vvctpu_torch.spec import mctf as smctf
     from vvctpu_torch.spec import sequence as tseq
     t0 = time.time()
     frames, kw = _spec_clips()[name]
+    if "filter_gop" in kw:
+        # the prefilter alone: the filtered frames
+        return (smctf.temporal_filter(frames, kw["filter_gop"]), None, None,
+                time.time() - t0)
     decs = []
     if kw.get("subpic_cols", 1) * kw.get("subpic_rows", 1) > 1:
         data, _, _ = _subpic_spec(frames, kw, decs)
@@ -677,21 +725,33 @@ def _spec_run(name):
 # clip name -> future of _spec_run, filled by main(); a phase run on its
 # own computes its spec results in place
 _SPEC = {}
-# seconds the spec model's runs took in the workers, and seconds the
-# card's phases waited for them
-_SPEC_T = {"work": 0.0, "wait": 0.0}
+# in a process of _phase_proc: main()'s shared dict of the finished spec
+# results (name -> _spec's result), which _spec waits on
+_SPEC_SHARED = None
+# seconds this process's phases waited for the spec model's results
+_SPEC_T = {"wait": 0.0}
 # runs a later phase of the same process compares with (phase 7's 7b)
 _RUNS = {}
 
 
 def _spec(name):
     fut = _SPEC.get(name)
+    if fut is None and _SPEC_SHARED is not None:
+        t0 = time.time()
+        while name not in _SPEC_SHARED:
+            if time.time() - t0 > 1500:
+                raise TimeoutError(f"spec model result {name!r} never came")
+            time.sleep(0.2)
+        res = _SPEC_SHARED[name]
+        _SPEC_T["wait"] += time.time() - t0
+        if isinstance(res, str):
+            raise RuntimeError(f"spec model run {name!r} failed: {res}")
+        return res
     if fut is None:
         return _spec_run(name)[:3]
     t0 = time.time()
-    data, decs, out, took = fut.result()
+    data, decs, out, _ = fut.result()
     _SPEC_T["wait"] += time.time() - t0
-    _SPEC_T["work"] += took
     return data, decs, out
 
 
@@ -827,7 +887,7 @@ def _run_full(dev, frames, cfg, decisions_out=None):
         if not np.isfinite(p) or p < 25.0:
             raise AssertionError(f"implausible Y-PSNR {p}")
     r.update(bits=bits, busy_enc=busy_enc, busy_dec=busy_dec,
-             alf_ctus=_alf_ctus(data))
+             alf_ctus=_alf_ctus(data), qps=tenc.slice_qps(data))
     return r
 
 
@@ -951,6 +1011,8 @@ def _card_eq(tag, dev, fn, *args, **kw):
         out = fn(*map(conv, args), **{k: conv(v) for k, v in kw.items()})
         return out if isinstance(out, tuple) else (out,)
     for c, g in zip(run(torch.device("cpu")), run(dev)):
+        if c is None and g is None:
+            continue
         if not torch.equal(g.cpu(), c):
             raise AssertionError(f"{tag}: card != CPU")
     return 1
@@ -1130,6 +1192,27 @@ def tool_frames(n=5, seed=1):
              np.concatenate([cr, cr, np.full_like(cr, 134 - 3 * t),
                              fine[t][2]], 1)]
             for t in range(n)]
+def ctc_frames(n=3, seed=3):
+    """A 64x64 clip for transform skip and joint Cb-Cr coding under
+    motion: sharp rectangles on a flat ground (screen content) panning 2
+    px right and 1 px down per frame, over anti-correlated Cb and Cr."""
+    h = w = 64
+    rng = np.random.default_rng(seed)
+    big = np.zeros((h + 2 * n, w + 2 * n))
+    for _ in range(40):
+        x0, y0 = rng.integers(0, w), rng.integers(0, h)
+        big[y0:y0 + rng.integers(2, 9), x0:x0 + rng.integers(2, 9)] = \
+            rng.integers(0, 256)
+    base = rng.integers(-40, 41, (h // 2 + n, w // 2 + n))
+    out = []
+    for t in range(n):
+        b = base[t // 2:t // 2 + h // 2, t:t + w // 2]
+        out.append([big[t:t + h, 2 * t:2 * t + w].astype(np.int32),
+                    np.clip(128 + b, 0, 255).astype(np.int32),
+                    np.clip(128 - b, 0, 255).astype(np.int32)])
+    return out
+
+
 def _phase_a_out(refs, rows, s, flags):
     """Phase A of one leaf size on a zero carry (frame axis of 1, on the
     refs' device); returns the luma recon and level planes."""
@@ -2195,6 +2278,242 @@ def phase_bitdepth_tiles(dev):
     return r["launches"], r["dq_launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: transform skip, joint Cb-Cr residuals, MCTF and rate control
+# ---------------------------------------------------------------------------
+
+CTC_TOOLS = dict(tskip=True, jccr=True, mctf=True)
+# 10c's frame size: config #5's source
+MCTF_4K = (2160, 3840)
+# 6a's toolset with the multi-type tree, LMCS and the three tools above
+CTC_SMALL = dict(isp=True, mrl=True, sbt=True, dq=True, alf=True,
+                 lmcs=True, **CTC_TOOLS, **MTT, **RA_TOOLS)
+
+
+def screen_planes(h, w, seed=0):
+    """test_tskip.py's sharp synthetic screen content: text-like
+    rectangles on a black ground, flat chroma."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros((h, w), np.int32)
+    for _ in range(30):
+        x0, y0 = rng.integers(0, w - 8), rng.integers(0, h - 8)
+        y[y0:y0 + rng.integers(2, 8), x0:x0 + rng.integers(2, 8)] = \
+            rng.integers(0, 256)
+    cb = np.full((h // 2, w // 2), 110, np.int32)
+    cr = np.full((h // 2, w // 2), 140, np.int32)
+    return [y, cb, cr]
+
+
+def corr_chroma_planes(h, w, seed=0):
+    """test_jccr.py's content with anti-correlated chroma residuals."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = (xx * 2 + yy + rng.integers(0, 10, (h, w))).astype(np.int32) % 256
+    base = rng.integers(-40, 41, (h // 2, w // 2)).astype(np.int32)
+    cb = np.clip(128 + base, 0, 255)
+    cr = np.clip(128 - base, 0, 255)
+    return [y, cb, cr]
+
+
+def _ctc_small(dev):
+    """10a: the tools' small clips against the spec model, and the MCTF
+    prefilter at config #1's size against the copied spec function."""
+    from vvctpu_torch.coding import mctf as tmctf
+    from vvctpu_torch.kernels import me_sad as kme
+    from vvctpu_torch.pipeline import encoder as tenc
+    for name, what in (
+            ("ts_tools", "64x128 AI, TS with MTS, LFNST, MIP "
+                         "(test_tskip.py)"),
+            ("ts_alone", "64x128 AI, TS alone, QP24 (test_tskip.py)"),
+            ("jccr", "64x128 AI, JCCR with MTS, MIP (test_jccr.py)"),
+            ("jccr_cclm", "64x128 AI, JCCR with CCLM, MTS, MIP "
+                          "(test_jccr.py)"),
+            ("rc", "64x64 IPPP, rate control at 1200 bits/frame, 4 frames "
+                   "(test_apps.py)"),
+            ("mctf", "64x64 GOP2, MCTF, 4 frames (test_apps.py)"),
+            ("ctc", "64x64 GOP2, 3 frames, TS, JCCR, MCTF and rate control "
+                    "with 6a's toolset, MTT, TT and LMCS"),
+            ("ctc_6a", "6a's 64x256 GOP4 clip, 5 frames, TS, JCCR, MCTF "
+                       "and rate control with its toolset, MTT, TT and "
+                       "LMCS")):
+        data, decs, _ = _held_to_spec(f"[10a] {what}", dev, name)
+        ts = sum(int((d.mts8 == 5).sum()) for d in decs)
+        jc = sum(int(d.jccr8.sum()) for d in decs)
+        kw = _spec_clips()[name][1]
+        if (kw.get("tskip") and not ts) or (kw.get("jccr") and not jc):
+            raise AssertionError(f"[10a] {what}: TS granules {ts}, JCCR "
+                                 f"granules {jc}")
+        qps = tenc.slice_qps(data)
+        print(f"[10a] {what}: {len(data)} bytes and decisions equal to the "
+              f"spec model; card and spec decoders verified hashes; 8x8 "
+              f"granules with TS {ts}, JCCR {jc}; QP per POC "
+              f"{[qps[p] for p in sorted(qps)]}")
+    frames, kw = _spec_clips()["mctf416"]
+    before = kme.launches
+    got = tmctf.temporal_filter(frames, kw["filter_gop"], device=dev)
+    n_me = kme.launches - before
+    want = _spec("mctf416")[0]
+    if not _same_planes(got, want):
+        raise AssertionError("[10a] MCTF 416x240: card != spec model")
+    if _same_planes(got, frames) or n_me != 4:
+        raise AssertionError(f"[10a] MCTF 416x240 filtered nothing or ran "
+                             f"me_sad {n_me} times (4 expected)")
+    print(f"[10a] MCTF prefilter, 5 frames of 416x240 (config #1's size), "
+          f"GOP4: every plane equal to the spec model's temporal_filter; "
+          f"{n_me} me_sad launches (lam 0, 7 keys at 256x448)")
+
+
+def _ctc_full(dev):
+    """10b: 8b's configuration with TS, JCCR, MCTF and rate control at
+    1080p; returns its kernel launches (me_sad, dq_trellis)."""
+    from vvctpu_torch.coding import mctf as tmctf
+    from vvctpu_torch.spec import sequence as tseq
+    n = 3
+    cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=2, wpp=True,
+                             sbt=True, dq=True, alf=True, lmcs=True,
+                             rc_bits_per_frame=600000, **CTC_TOOLS, **MTT,
+                             **RA_TOOLS)
+    frames = synth_frames(n, 1080, 1920, seed=4)
+    tag = "[10b]"
+    # 1080 rows are not a multiple of 16: the prefilter passes them
+    if not _same_planes(tmctf.temporal_filter(frames, 2, device=dev),
+                        frames):
+        raise AssertionError(f"{tag} MCTF changed 1080-row frames")
+    decs = []
+    r = _run_full(dev, frames, cfg, decisions_out=decs)
+    if r["me_keys"] != [11] * 3:
+        raise AssertionError(f"{tag} me_sad launches (keys) {r['me_keys']}, "
+                             "expected three at 11 keys")
+    if not r["dq_launches"]:
+        raise AssertionError(f"{tag} dq_trellis was never launched")
+    qps = [r["qps"][p] for p in range(n)]
+    if qps[0] != 32 or len(set(qps)) < 2:
+        raise AssertionError(f"{tag} rate control left the QPs at {qps}")
+    ts = [int((d.mts8 == 5).sum()) for d in decs]
+    jc = [int(d.jccr8.sum()) for d in decs]
+    print(f"{tag} 1080p RA GOP2 QP32 WPP, 8b's toolset with TS, JCCR, MCTF "
+          f"and rate control at 600000 bits/frame, {n} frames (I0 P2 B1): "
+          f"MCTF left the 1080-row frames unchanged, as the reference does "
+          f"(1080 % 16 = 8); {sum(r['bits']) / n:.1f} bits/frame (new data: "
+          f"the reference engine never ran it); QP per POC {qps}; 8x8 "
+          f"granules with TS {ts}, JCCR {jc} (coding order I0 P2 B1); "
+          f"me_sad launches {r['launches']}, all at 11 keys")
+    _report(tag, r, n)
+    print(f"{tag} phase-B batches of the encode per leaf class: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(r["batch_kinds"].items())))
+    for k in ("enc", "dec"):
+        lt = r[f"{k}_l"]
+        print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
+            f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
+    return r["launches"], r["dq_launches"]
+
+
+def _mctf_4k(dev):
+    """10c: the MCTF prefilter on 3 frames of config #5's 4K 10-bit source
+    (GOP2), timed on the card; its motion search's me_sad held against the
+    twin at lam 0, and its blend against the spec model's arithmetic
+    given the card's motion field.  Returns (me_sad launches of the timed
+    run, the search's largest error against the twin)."""
+    import types
+
+    from vvctpu_torch.coding import mctf as tmctf
+    from vvctpu_torch.kernels import me_sad as kme
+    from vvctpu_torch.spec import mctf as smctf
+    from vvctpu_torch.spec.inter import ME_RANGE
+    tag = "[10c]"
+    frames = synth_frames10(3, *MCTF_4K, seed=5)
+    # the search of anchor 0 in neighbour 1, as block_motion frames it
+    o, nb = (torch.as_tensor(frames[i][0], device=dev) for i in (0, 1))
+    H, W = (-(-n // 64) * 64 for n in o.shape)
+    o64 = tmctf._clamped(o, 0, H, 0, W).contiguous()
+    refp = tmctf._clamped(nb, -ME_RANGE, H + 2 * ME_RANGE, -ME_RANGE,
+                          W + 2 * ME_RANGE).contiguous()
+    err = max(int((a - b).abs().max())
+              for g, w in zip(kme.me_sad(o64, refp, 0),
+                              kme.me_sad_reference(o64, refp, 0))
+              for a, b in zip(g, w))
+    if err:
+        raise AssertionError(f"{tag} me_sad at lam 0 differs from its twin "
+                             f"by {err}")
+    del o, nb, o64, refp
+    mvs = []
+    first = tmctf.temporal_filter(frames, 2, device=dev, motion_out=mvs)
+    kme.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = tmctf.temporal_filter(frames, 2, device=dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kme.launches
+    if launches != 4 or not _same_planes(out, first):
+        raise AssertionError(f"{tag} {launches} me_sad launches (4 "
+                             "expected), or the two runs differ")
+    # the spec model's blend with the card's motion: its me_size_pass
+    # gives the card's fields in its own call order
+    it = iter(mv.cpu().numpy() for mv in mvs)
+    spec_dec = smctf.sdecide
+    smctf.sdecide = types.SimpleNamespace(
+        me_size_pass=lambda *a, **k: (None, next(it)))
+    try:
+        t1 = time.time()
+        want = smctf.temporal_filter(frames, 2)
+        t_np = time.time() - t1
+    finally:
+        smctf.sdecide = spec_dec
+    if not _same_planes(out, want):
+        raise AssertionError(f"{tag} blend != the spec model's arithmetic")
+    moved = [int(np.abs(mv.cpu().numpy()).max()) for mv in mvs]
+    print(f"{tag} MCTF prefilter, 3 frames of 4K (3840x2160) 10-bit (config "
+          f"#5's source), GOP2 (anchors 0 and 2, 4 neighbour searches): "
+          f"{dt:.3f} s on the card (host clock, ends in a sync), "
+          f"{launches} me_sad launches at {H}x{W}, lam 0 (the twin equal "
+          f"at lam 0, max abs err {err}); the blend equals the spec model's "
+          f"_mc_plane and _neighbour_weight given the card's motion "
+          f"(largest |mv| per search {moved}; the NumPy blend took "
+          f"{t_np:.1f} s)")
+    return launches, err
+
+
+def mctf_host_search(dev):
+    """One of 10c's neighbour searches (anchor 0 in frame 1 of config #5's
+    4K 10-bit source) timed in the copied spec model's NumPy
+    (me_size_pass, what the reference engine's MCTF runs on the host) and
+    on the card (coding/mctf.py block_motion, host clock around work that
+    ends in a sync); both motion fields must be equal.  Not run by main:
+
+        python3 -c "import torch, chip_smoke;
+            chip_smoke.mctf_host_search(torch.device('cuda'))"
+    """
+    from vvctpu_torch.coding import mctf as tmctf
+    from vvctpu_torch.spec import decide as sdecide
+    frames = synth_frames10(2, *MCTF_4K, seed=5)
+    o, nb = (torch.as_tensor(f[0], device=dev) for f in frames)
+    tmctf.block_motion(o, nb)                   # build and warm up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mv = tmctf.block_motion(o, nb)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    _, smv = sdecide.me_size_pass(frames[0][0], frames[1][0], 16, lam=0)
+    t_host = time.time() - t0
+    if not np.array_equal(mv.cpu().numpy(), smv):
+        raise AssertionError("[10c] card and host motion fields differ")
+    print(f"[10c] one 4K 10-bit neighbour search: spec model's NumPy "
+          f"me_size_pass {t_host:.1f} s on the host, block_motion "
+          f"{t_card:.4f} s on the card; motion fields equal")
+
+
+def phase_ctc_tools(dev):
+    """Phase 10: transform skip, joint Cb-Cr residuals, MCTF and rate
+    control; returns the kernels' launches on the 1080p and 4K paths
+    (me_sad, dq_trellis) and me_sad's largest error against its twin."""
+    _ctc_small(dev)
+    me_b, dq_b = _ctc_full(dev)
+    me_c, err = _mctf_4k(dev)
+    return me_b + me_c, dq_b, err
+
+
 def walls(dev):
     """Encode and decode walls of phase 4's and phase 6b's configurations
     (1080p RA GOP16, 17 frames; bench config #4 whole, 5 frames) with the
@@ -2223,15 +2542,14 @@ def walls(dev):
 def _phase_proc(spec, phases):
     """The phase functions ``phases``, one after the other, in a process of
     their own on a CUDA context of its own, with the spec model's results
-    they hold clips against given as ``spec`` (name -> _spec's result);
-    returns (what they printed, [(each phase's result, its seconds)]).  On
-    a failure it writes what it printed to stderr."""
+    they hold clips against read from ``spec``, main()'s shared dict
+    (name -> _spec's result, filled as each run finishes); returns (what
+    they printed, [(each phase's result, its seconds)], seconds waited for
+    spec results).  On a failure it writes what it printed to stderr."""
     import contextlib
     import io
-    from concurrent.futures import Future
-    for name, res in spec.items():
-        _SPEC[name] = Future()
-        _SPEC[name].set_result(res + (0.0,))
+    global _SPEC_SHARED
+    _SPEC_SHARED = spec
     buf = io.StringIO()
     outs = []
     try:
@@ -2242,16 +2560,21 @@ def _phase_proc(spec, phases):
     except BaseException:
         sys.stderr.write(buf.getvalue())
         raise
-    return buf.getvalue(), outs
+    return buf.getvalue(), outs, _SPEC_T["wait"]
 
 
-# phases 7 and 8, and 9 and 6, with the clips of each pair that are held
-# against the spec model
-_SIDE = (((phase_mtt, phase_lmcs),
-          ("mtt_intra", "mtt_ra_tools", "lmcs_ai", "lmcs_gop2", "lmcs_tt")),
-         ((phase_bitdepth_tiles, phase_ra_tools),
-          ("ra_tools", "ai10", "tiles21", "tiles22", "tiles_unequal",
-           "subpic21", "subpic22")))
+# the side processes: phases 7 and 8; phases 9 and 6; phases 3 and 10
+_SIDE = ((phase_mtt, phase_lmcs), (phase_bitdepth_tiles, phase_ra_tools),
+         (phase_full, phase_ctc_tools))
+
+
+def _share(shared, name, fut):
+    """Done-callback of a spec model run: its result (or its error, as a
+    string) into the dict the side processes read."""
+    try:
+        shared[name] = fut.result()[:3]
+    except BaseException as e:      # the side process raises it
+        shared[name] = f"{type(e).__name__}: {e}"
 
 
 def main() -> int:
@@ -2266,60 +2589,70 @@ def main() -> int:
         print(f"[time] {tag}: {time.time() - t0:.1f} s")
         return out
 
-    # the spec model's side of phases 2, 5a, 6a, 7a, 8a and 9a is host
-    # work: two worker processes run it while the card runs the phases
-    # before them
+    # the spec model's side of phases 2, 5a, 6a, 7a, 8a, 9a and 10a is
+    # host work: two worker processes run it while the card runs the
+    # phases before them, and each result goes to the side processes
+    # through a shared dict as soon as it is done
     ctx = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(max_workers=2, mp_context=ctx)
-    # after phase 4 the script runs in three processes: phase 5 here,
-    # phases 7 and 8 in a second, phases 9 and 6 in a third; each phase's
-    # host is one core and its card mostly idle, and one after the other
-    # they would leave the script no margin within its limit.  Their
-    # walls and busy shares are those of a card the three share.
+    mgr = ctx.Manager()
+    shared = mgr.dict()
+    # after phase 4 the script runs in four processes: phase 5 here,
+    # phases 7 and 8 in a second, phases 9 and 6 in a third, phases 3 and
+    # 10 in a fourth; each phase's host is one core and its card mostly
+    # idle, and one after the other they would leave the script no margin
+    # within its limit.  Their walls and busy shares are those of a card
+    # the four share.
     side = [ProcessPoolExecutor(max_workers=1, mp_context=ctx)
             for _ in _SIDE]
     try:
         for name in _spec_clips():
             _SPEC[name] = pool.submit(_spec_run, name)
+            _SPEC[name].add_done_callback(
+                lambda f, n=name: _share(shared, n, f))
         krow, krow10 = timed("phase 1 me_sad", phase_kernels)
         drow = timed("phase 1 dq_trellis", phase_dq_kernel)
         timed("phase 2", phase_small)
-        launches = timed("phase 3", phase_full) + timed("phase 4", phase_ra)
-        futs = [ex.submit(_phase_proc, {n: _spec(n) for n in names}, fns)
-                for ex, (fns, names) in zip(side, _SIDE)]
+        launches = timed("phase 4", phase_ra)
+        futs = [ex.submit(_phase_proc, shared, fns)
+                for ex, fns in zip(side, _SIDE)]
         launches += timed("phase 5", phase_ai)
         outs = {}
-        for fut, (fns, _) in zip(futs, _SIDE):
+        for fut, fns in zip(futs, _SIDE):
             t0 = time.time()
-            text, res = fut.result()
+            text, res, waited = fut.result()
             print(text, end="")
             outs.update((fn.__name__, out) for fn, (out, _) in zip(fns, res))
             print("[time] " + " and ".join(
                 f"{fn.__name__} {t:.1f} s" for fn, (_, t) in zip(fns, res))
-                + " in a process of their own, beside the others (then "
-                f"waited for {time.time() - t0:.1f} s)")
+                + " in a process of their own, beside the others (waited "
+                f"{waited:.1f} s for spec model results; then main waited "
+                f"for it {time.time() - t0:.1f} s)")
     finally:
         for ex in (*side, pool):
             ex.shutdown(wait=True, cancel_futures=True)
-    print(f"[time] spec model side in the workers: {_SPEC_T['work']:.1f} s; "
-          f"the card's phases waited {_SPEC_T['wait']:.1f} s for it, so "
-          f"the workers saved {_SPEC_T['work'] - _SPEC_T['wait']:.1f} s")
+        mgr.shutdown()
+    print(f"[time] spec model side in the workers: "
+          f"{sum(f.result()[3] for f in _SPEC.values()):.1f} s; the main "
+          f"process's phases waited {_SPEC_T['wait']:.1f} s for it")
     me7, dq7, dq_err7 = outs["phase_mtt"]
     me8, dq8 = outs["phase_lmcs"]
     me9, dq9 = outs["phase_bitdepth_tiles"]
     me4, dq_launches, dq_err = outs["phase_ra_tools"]
-    me_err = max(krow["max_abs_err"], krow10["max_abs_err"])
+    me10, dq10, me_err10 = outs["phase_ctc_tools"]
+    launches += outs["phase_full"]
+    me_err = max(krow["max_abs_err"], krow10["max_abs_err"], me_err10)
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
-                    launches=launches + me4 + me7 + me8 + me9,
+                    launches=launches + me4 + me7 + me8 + me9 + me10,
                     equal=me_err == 0, max_abs_err=me_err, ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
                     bound_by=krow["bound_by"], library_ms=None),
                dict(name="dq_trellis", route="cuda",
                     source="vvctpu_torch/csrc/dq_trellis.cu",
                     replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
-                    launches=dq_launches + dq7 + dq8 + dq9,
+                    launches=dq_launches + dq7 + dq8 + dq9 + dq10,
                     equal=max(drow["max_abs_err"], dq_err, dq_err7) == 0,
                     max_abs_err=max(drow["max_abs_err"], dq_err, dq_err7),
                     ms=drow["ms"],

@@ -224,10 +224,8 @@ def test_cfg_driven_encode(tmp_path):
 # file's lines (RDOQ, rate control and the tools the slice lacks have no
 # flag; the cfg hands them to EncoderConfig as they are)
 _OUTSIDE = {
-    "ctu": ["--ctu", "128"], "rc-bpf": "RateControl : 1\n"
-    "TargetBitrate : 30000", "rdoq": "RDOQ : 0", "tskip": "TSM : 1",
-    "jccr": "JointCbCr : 1", "ibc": "IBC : 1", "plt": "PLT : 1",
-    "mctf": "TemporalFilter : 1"}
+    "ctu": ["--ctu", "128"], "rdoq": "RDOQ : 0", "ibc": "IBC : 1",
+    "plt": "PLT : 1"}
 
 
 @pytest.mark.parametrize("opt", list(_OUTSIDE))
@@ -246,19 +244,28 @@ def test_options_outside_slice_raise(tmp_path, opt):
 
 
 # options that were outside the slice until 10-bit input, tiles and
-# subpictures were ported: a flag, or a cfg file's lines
+# subpictures, and then rate control, MCTF, TS and JCCR were ported: a
+# flag, or a cfg file's lines
 _NOW_IN = {
     "bit-depth": ["--bit-depth", "10"], "tiles": ["--tiles", "2x1"],
-    "subpics": ["--subpics", "2x1"], "cfg-tiles": "TileColumns : 2"}
+    "subpics": ["--subpics", "2x1"], "cfg-tiles": "TileColumns : 2",
+    "rc-bpf": "RateControl : 1\nTargetBitrate : 30000",
+    "tskip": "TSM : 1", "jccr": "JointCbCr : 1",
+    "mctf": "TemporalFilter : 1"}
+# the reference CLI reads a cfg file's RateControl and TargetBitrate and
+# does not apply them; the port's CLI applies them (30000 bit/s at the
+# default 30 frames/s), so the reference is given the same target
+_REF_EXTRA = {"rc-bpf": ["--rc-bpf", "1000"]}
 
 
 @pytest.mark.parametrize("opt", list(_NOW_IN))
 def test_options_now_in_slice_encode(tmp_path, opt):
     """The CLI's --bit-depth 10, --tiles, --subpics and a cfg file's
-    TileColumns encode 2 frames of 128x64 (IPPP) to the reference CLI's
-    bytes, and the port decodes them with the hashes verified.  Both CLIs
-    read a cfg file's TileColumns and do not apply it: its stream has no
-    tiles."""
+    TileColumns, RateControl with TargetBitrate, TSM, JointCbCr and
+    TemporalFilter encode 2 frames of 128x64 (IPPP) to the reference
+    CLI's bytes (tolerance 0), and the port decodes them with the hashes
+    verified.  Both CLIs read a cfg file's TileColumns and do not apply
+    it: its stream has no tiles."""
     frames = motion_frames(2, 64, 128, seed=2)
     extra = _NOW_IN[opt]
     bd = 10 if opt == "bit-depth" else 8
@@ -275,8 +282,9 @@ def test_options_now_in_slice_encode(tmp_path, opt):
         out = tmp_path / f"{tag}.bin"
         args = ["encode", "-i", str(src), "--wdt", "128", "--hgt", "64",
                 "-q", "32", "--ip", "0", "-b", str(out), *extra]
-        assert fn(args + (["--device", "cpu"] if tag == "port" else [])) \
-            == 0
+        args += (["--device", "cpu"] if tag == "port"
+                 else _REF_EXTRA.get(opt, []))
+        assert fn(args) == 0
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
     assert len(_decode(outs[0])) == 2

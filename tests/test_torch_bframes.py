@@ -181,20 +181,25 @@ _CASES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _encodes(case):
-    """(frames, port encode, reference-engine encode) of a case, shared by
-    the tests of this module (one JAX compile per case and process)."""
+def _port_encode(case):
+    """(frames, the port's encode) of a case, shared by the tests of this
+    module."""
     mk, kw = _CASES[case]
     frames = mk()
-    port = tenc.encode_sequence(frames, tseq.EncoderConfig(**kw),
-                                device="cpu")
-    ref = jenc.encode_sequence(frames, sseq.EncoderConfig(**kw))
-    return frames, port, ref
+    return frames, tenc.encode_sequence(frames, tseq.EncoderConfig(**kw),
+                                        device="cpu")
 
 
 @pytest.mark.parametrize("case", list(_CASES))
 def test_ra_bytes_equal_reference_and_spec(case):
-    frames, (data, rec, bits), (jdata, jrec, jbits) = _encodes(case)
+    """The port's bytes, bits and recon equal the reference engine's and
+    the spec model's, and the port decodes the reference engine's stream
+    with the hashes verified (the reference engine's encode is traced in
+    this test alone: under xdist's load distribution the tests of this
+    module may each run in a worker of their own)."""
+    frames, (data, rec, bits) = _port_encode(case)
+    jdata, jrec, jbits = jenc.encode_sequence(
+        frames, sseq.EncoderConfig(**_CASES[case][1]))
     assert data == jdata
     assert bits == jbits
     assert _same(rec, jrec)
@@ -202,13 +207,16 @@ def test_ra_bytes_equal_reference_and_spec(case):
                                           tseq.EncoderConfig(**_CASES[case][1]))
     assert data == sdata
     assert _same(rec, srec)
+    out, sps = tenc.decode_sequence(jdata, check_hash=True, device="cpu")
+    assert _same(out, jrec)
 
 
 @pytest.mark.parametrize("case", list(_CASES))
 def test_ra_cross_decode(case):
-    _, (data, rec, _), (jdata, jrec, _) = _encodes(case)
-    out, sps = tenc.decode_sequence(jdata, check_hash=True, device="cpu")
-    assert _same(out, jrec)
+    """The reference engine's decoder reads the port's stream with the
+    hashes verified (the port's decoder reads the reference's in the
+    test above), and the temporal ids follow the GOP plan."""
+    _, (data, rec, _) = _port_encode(case)
     jout, _ = jenc.decode_sequence(data, check_hash=True)
     assert _same(jout, rec)
     # B pictures carry temporal ids max(qp_delta - 1, 1), I/P carry 0
@@ -220,8 +228,7 @@ def test_ra_cross_decode(case):
     assert tids == want and max(want) > 1
 
 
-@pytest.mark.parametrize("tool", ["ibc_enabled", "ts_enabled",
-                                  "jccr_enabled"])
+@pytest.mark.parametrize("tool", ["ibc_enabled", "plt_enabled"])
 def test_b_stream_with_tool_outside_slice_raises(tool):
     """A random-access stream whose SPS enables a tool outside the slice
     raises in the port's decoder (it is checked before any slice)."""
@@ -239,3 +246,19 @@ def test_b_stream_with_tool_outside_slice_raises(tool):
     with pytest.raises(ValueError, match="outside"):
         tenc.decode_sequence(tbs.write_annexb(nals), check_hash=True,
                              device="cpu")
+
+
+@pytest.mark.parametrize("tool", ["tskip", "jccr"])
+def test_b_stream_with_tool_now_in_slice_decodes(tool):
+    """A random-access stream with transform skip or JCCR (outside the
+    slice until they were ported) encodes the spec model's bytes
+    (tolerance 0) and decodes in the port with the hashes verified."""
+    frames = motion_frames(3)
+    cfg = tseq.EncoderConfig(qp=32, intra_period=0, gop=2, **{tool: True})
+    data, rec, _ = tenc.encode_sequence(frames, cfg, device="cpu")
+    sdata, _, _ = tseq.encode_sequence(frames, cfg)
+    assert data == sdata
+    out, sps = tenc.decode_sequence(data, check_hash=True, device="cpu")
+    assert sps.ts_enabled == (tool == "tskip")
+    assert sps.jccr_enabled == (tool == "jccr")
+    assert _same(out, rec)

@@ -67,10 +67,7 @@ def test_corrupt_stream_fails_hash():
         tenc.decode_sequence(bytes(bad), check_hash=True, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(jccr=True),
-                                dict(tskip=True), dict(mctf=True),
-                                dict(rc_bits_per_frame=1000),
-                                dict(ibc=True, intra_period=0),
+@pytest.mark.parametrize("kw", [dict(ibc=True, intra_period=0),
                                 dict(ctu=128), dict(rdoq=False)])
 def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)
@@ -78,18 +75,27 @@ def test_config_outside_slice_raises(kw):
         tenc.encode_sequence(frames, tseq.EncoderConfig(**kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(tile_cols=2), dict(subpic_cols=2)])
+@pytest.mark.parametrize("kw", [dict(tile_cols=2), dict(subpic_cols=2),
+                                dict(jccr=True), dict(tskip=True),
+                                dict(mctf=True),
+                                dict(rc_bits_per_frame=1000)])
 def test_config_now_in_slice_equals_spec_model(kw):
-    """A tile grid and a subpicture grid, outside the slice until 10-bit
-    input, tiles and subpictures were ported, encode the spec model's
-    bytes."""
-    frames = motion_frames(n=1)
+    """A tile grid and a subpicture grid (outside the slice until 10-bit
+    input, tiles and subpictures were ported), JCCR, transform skip, MCTF
+    and rate control (outside it until they were ported) encode the spec
+    model's bytes and recon (tolerance 0), and the port decodes them with
+    the hashes verified; MCTF and rate control on 3 all-intra frames, so
+    that the filter has neighbours and the controller moves the QP."""
+    frames = motion_frames(n=3 if {"mctf", "rc_bits_per_frame"} & set(kw)
+                           else 1)
     cfg = tseq.EncoderConfig(**kw)
     data, rec, _ = tenc.encode_sequence(frames, cfg, device="cpu")
     sdata, srec, _ = tseq.encode_sequence(frames, cfg)
     assert data == sdata
     assert all(np.array_equal(a[c], b[c]) for a, b in zip(rec, srec)
                for c in range(3))
+    out, _ = tenc.decode_sequence(data, check_hash=True, device="cpu")
+    assert _same(out, rec)
 
 
 def test_default_device_is_cuda():

@@ -48,7 +48,7 @@ _REFINED = dict(qp=30, gpm=True, ciip=True, sbt=True, dmvr=True, bdof=True,
 # tool indices that the reference engine writes at a leaf's top-left 8x8
 # granule only (the one the entropy coder reads); the port fills the
 # leaf, as the spec model does
-_AT_ORIGIN = ("mts8", "lfnst8", "cmode8", "sbt8")
+_AT_ORIGIN = ("mts8", "lfnst8", "cmode8", "sbt8", "jccr8")
 
 
 def _assert_equal_to_reference(g, w, h: int, wd: int):
@@ -156,9 +156,7 @@ def test_tool_config_equals_spec_model(case):
     assert _same(out, rec)
 
 
-@pytest.mark.parametrize("kw", [dict(mctf=True),
-                                dict(ibc=True), dict(plt=True),
-                                dict(tskip=True), dict(jccr=True),
+@pytest.mark.parametrize("kw", [dict(ibc=True), dict(plt=True),
                                 dict(ctu=128), dict(bit_depth=12)])
 def test_tools_outside_slice_still_raise(kw):
     with pytest.raises(ValueError, match="outside"):
@@ -166,34 +164,43 @@ def test_tools_outside_slice_still_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(subpic_rows=2), dict(tile_rows=2),
-                                dict(tile_cols=2), dict(bit_depth=10)])
+                                dict(tile_cols=2), dict(bit_depth=10),
+                                dict(mctf=True), dict(tskip=True),
+                                dict(jccr=True)])
 def test_tools_of_this_slice_accepted(kw):
-    """Subpictures, tiles and 10-bit input pass the config check, and a
-    2-frame 128x128 IPPP encode with them decodes with the hashes
-    verified."""
+    """Subpictures, tiles, 10-bit input, MCTF, transform skip and JCCR pass
+    the config check, and a 2-frame IPPP encode with them (128x128 for
+    the grids and 10 bits, 64x64 for the three tools ported after this
+    test was written) decodes with the hashes verified; with MCTF, TS or
+    JCCR its bytes and recon equal the spec model's (tolerance 0)."""
     cfg = tseq.EncoderConfig(intra_period=0, gop=1, **kw)
     tenc.check_config(cfg)
-    frames = motion_frames(2, 128, 128, seed=27)
+    tools = {"mctf", "tskip", "jccr"} & set(kw)
+    frames = motion_frames(2, *((64, 64) if tools else (128, 128)),
+                           seed=27)
     if cfg.bit_depth == 10:
         frames = [[p << 2 for p in f] for f in frames]
     data, rec, _ = tenc.encode_sequence(frames, cfg, device="cpu")
     out, _ = tenc.decode_sequence(data, check_hash=True, device="cpu")
     assert _same(out, rec)
+    if tools:
+        sdata, srec, _ = tseq.encode_sequence(frames, cfg)
+        assert data == sdata and _same(rec, srec)
 
 
 @pytest.mark.parametrize("field,value", [
     ("log2_ctu", 5), ("bit_depth", 12),
-    ("ibc_enabled", True), ("plt_enabled", True), ("ts_enabled", True),
-    ("jccr_enabled", True), ("log2_ctu", 7)])
+    ("ibc_enabled", True), ("plt_enabled", True), ("log2_ctu", 7)])
 def test_stream_outside_slice_still_raises(field, value):
     """The decoder's SPS/PPS check refuses what the slice leaves out and
     accepts the inter and intra toolsets, SBT, DQ, ALF, the multi-type
-    tree and LMCS."""
+    tree, LMCS, transform skip and JCCR."""
     from vvctpu_torch.spec import hls
     tools = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
                  cclm=True, mmvd=True, dmvr=True, bdof=True, bcw=True,
                  gpm=True, affine=True, amvr=True, smvd=True, ciip=True,
-                 sbt=True, dq=True, alf=True, mtt=True, tt=True, lmcs=True)
+                 sbt=True, dq=True, alf=True, mtt=True, tt=True, lmcs=True,
+                 tskip=True, jccr=True)
     sps = tseq.EncoderConfig(intra_period=0, gop=4, **tools).make_sps(64, 64)
     tenc._check_sps(sps, hls.PPS())
     pps = hls.PPS()
@@ -208,11 +215,13 @@ def test_stream_outside_slice_still_raises(field, value):
 
 
 @pytest.mark.parametrize("field,value", [("tile_rows", None),
-                                         ("bit_depth", 10), ("tiles", None)])
+                                         ("bit_depth", 10), ("tiles", None),
+                                         ("ts_enabled", True),
+                                         ("jccr_enabled", True)])
 def test_stream_of_this_slice_accepted(field, value):
-    """The decoder's SPS/PPS check accepts 10-bit streams and tile grids,
-    and refuses tiles with WPP where the picture has more than one CTU
-    row, as the spec model does."""
+    """The decoder's SPS/PPS check accepts 10-bit streams, tile grids,
+    transform skip and JCCR, and refuses tiles with WPP where the picture
+    has more than one CTU row, as the spec model does."""
     from vvctpu_torch.spec import hls
     sps = tseq.EncoderConfig(intra_period=0, gop=4).make_sps(128, 128)
     pps = hls.PPS()

@@ -1,7 +1,8 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
 the PyTorch engine (all-intra, low-delay P or random access, with the
 multi-type tree, VVC's intra and inter toolsets, dependent quantization,
-LMCS and ALF), and the reference's stream tools (parcat, sei-remove,
+transform skip, joint Cb-Cr residuals, LMCS and ALF, the MCTF prefilter
+and rate control), and the reference's stream tools (parcat, sei-remove,
 extract, merge, subpic-extract, subpic-merge, filmgrain, info).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
@@ -14,19 +15,24 @@ extract, merge, subpic-extract, subpic-merge, filmgrain, info).
         -f 5 -b ra.bin
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq --lmcs -f 3 -b mtt.bin
-    python -m vvctpu_torch encode -i in10.yuv --wdt 3840 --hgt 2160 -q 32 \
+    python -m vvctpu_torch encode -i in10.yuv --wdt 3840 --hgt 2160 -q 32 \\
         --bit-depth 10 --ip 32 --gop 2 --tiles 2x2 -f 3 -b c5.bin
-    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --subpics 2x1 -f 3 -b sp.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq --lmcs --tskip --jccr \\
+        --mctf --rc-bpf 600000 -f 3 -b ctc.bin
     python -m vvctpu_torch encode -c encoder_randomaccess.cfg -c seq.cfg
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
     python -m vvctpu_torch info -b out.bin
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
 device (CUDA by default).  Options outside the port's slice (CTU 128;
-from a cfg file also RDOQ off, rate control, TS, JCCR, IBC, palette and
-MCTF) are refused with the encoder's ValueError, and so are tiles with
-WPP on a picture of more than one CTU row.
+from a cfg file also RDOQ off, IBC and palette) are refused with the
+encoder's ValueError, and so are tiles with WPP on a picture of more
+than one CTU row.  A cfg file's RateControl with TargetBitrate and
+FrameRate sets the rate controller's bits per frame where --rc-bpf is
+not given (the reference CLI reads those keys and does not apply them).
 """
 from __future__ import annotations
 
@@ -57,6 +63,9 @@ _TOOLS = {
     "mtt": "multi-type tree (binary splits at 16/32)",
     "tt": "ternary splits at 32 nodes (requires --mtt)",
     "lmcs": "LMCS luma mapping (reshaper)",
+    "tskip": "transform skip (unified tx candidate index 5)",
+    "jccr": "joint Cb-Cr residual coding",
+    "mctf": "motion-compensated temporal source prefilter",
 }
 _HASH = {"md5": 0, "crc": 1, "checksum": 2}
 
@@ -64,10 +73,11 @@ _HASH = {"md5": 0, "crc": 1, "checksum": 2}
 def _apply_cfg(args, defaults) -> dict:
     """Fill the encode arguments from the layered cfg files ``args.cfg``,
     as the reference CLI does: a file's value applies where the command
-    line left the option at its default.  Returns the files' options that
-    have no flag here (RDOQ, rate control and the tools outside the
-    slice), for EncoderConfig as they are: check_config refuses what the
-    slice lacks."""
+    line left the option at its default (rate control's bits per frame
+    from RateControl, TargetBitrate and FrameRate where --rc-bpf is 0).
+    Returns the files' options that have no flag here (RDOQ and the tools
+    outside the slice), for EncoderConfig as they are: check_config
+    refuses what the slice lacks."""
     from .io.cfg import load_layered, rc_bits_per_frame
     fc = load_layered(args.cfg)
     args.input = args.input or fc.input_file
@@ -80,11 +90,11 @@ def _apply_cfg(args, defaults) -> dict:
     for a in ("qp", "intra_period", "gop", "bit_depth", "wpp", *_TOOLS):
         if defaults[a] == getattr(args, a):
             setattr(args, a, getattr(fc, a))
+    if defaults["rc_bpf"] == args.rc_bpf:
+        args.rc_bpf = rc_bits_per_frame(fc)
     # a file's TileColumns and TileRows are read and not applied, as in
     # the reference CLI: only --tiles sets the tile grid
-    return dict(rdoq=fc.rdoq, rc_bits_per_frame=rc_bits_per_frame(fc),
-                tskip=fc.tskip, jccr=fc.jccr, ibc=fc.ibc, plt=fc.plt,
-                mctf=fc.mctf)
+    return dict(rdoq=fc.rdoq, ibc=fc.ibc, plt=fc.plt)
 
 
 def _enc(args) -> int:
@@ -102,7 +112,8 @@ def _enc(args) -> int:
         qp=args.qp, bit_depth=args.bit_depth, ctu=args.ctu,
         intra_period=args.intra_period, gop=args.gop, wpp=args.wpp,
         tile_cols=tc, tile_rows=tr, subpic_cols=sc, subpic_rows=sr,
-        hash_type=_HASH[args.hash], **args.from_cfg,
+        rc_bits_per_frame=args.rc_bpf, hash_type=_HASH[args.hash],
+        **args.from_cfg,
         **{t: getattr(args, t) for t in _TOOLS})
     tenc.check_config(cfg)
     frames = yuv.read_yuv(args.input, args.wdt, args.hgt, args.frames,
@@ -119,11 +130,11 @@ def _enc(args) -> int:
     plan = {p[0]: p for p in seq.gop_plan(len(frames), args.intra_period,
                                           args.gop)}
     letter = {hls.SLICE_I: "I", hls.SLICE_P: "P", hls.SLICE_B: "B"}
+    qps = tenc.slice_qps(data)
     for poc, planes in enumerate(frames):
         p = [seq.psnr(planes[c], recons[poc][c], args.bit_depth)
              for c in range(3)]
-        _, stype, _, qpd = plan[poc]
-        print(f"POC {poc:4d} {letter[stype]}  QP {args.qp + qpd:2d}  "
+        print(f"POC {poc:4d} {letter[plan[poc][1]]}  QP {qps[poc]:2d}  "
               f"{bits[poc]:8d} bits  "
               f"Y {p[0]:6.3f} dB  U {p[1]:6.3f} dB  V {p[2]:6.3f} dB")
     if args.recon:
@@ -347,6 +358,8 @@ def main(argv=None) -> int:
                    help="wavefront entropy lanes (one per CTU row)")
     for tool, text in _TOOLS.items():
         e.add_argument(f"--{tool}", action="store_true", help=text)
+    e.add_argument("--rc-bpf", type=int, default=0,
+                   help="rate control: target bits per frame (0 = off)")
     e.add_argument("--tiles", default="1x1", help="tile grid CxR")
     e.add_argument("--subpics", default="1x1", help="subpicture grid CxR")
     _device_arg(e)

@@ -52,8 +52,25 @@ def _mm(a, b):
     return torch.matmul(a, b).round().to(torch.int32)
 
 
+def _ts_fwd(resi, h: int, w: int, bd: int):
+    """Transform skip: the residual shifted up by transform_shift."""
+    ts = rom.transform_shift(_log2(w), _log2(h), bd)
+    return (resi.to(torch.int32) << ts).clamp(COEFF_MIN, COEFF_MAX)
+
+
+def _ts_inv(coef, h: int, w: int, bd: int):
+    """Transform skip's inverse: a rounding shift down by transform_shift."""
+    ts = rom.transform_shift(_log2(w), _log2(h), bd)
+    c = coef.to(torch.int32)
+    if ts > 0:
+        c = (c + (1 << (ts - 1))) >> ts
+    return c.clamp(COEFF_MIN, COEFF_MAX)
+
+
 def forward_transform(resi, h: int, w: int, kind_h: int = rom.DCT2,
                       kind_v: int = rom.DCT2, bd: int = 8):
+    if kind_h == rom.IDT:
+        return _ts_fwd(resi, h, w, bd)
     dev = resi.device
     mh = _mat(kind_v, h, dev)
     mw = _mat(kind_h, w, dev)
@@ -67,6 +84,8 @@ def forward_transform(resi, h: int, w: int, kind_h: int = rom.DCT2,
 
 def inverse_transform(coef, h: int, w: int, kind_h: int = rom.DCT2,
                       kind_v: int = rom.DCT2, bd: int = 8):
+    if kind_h == rom.IDT:
+        return _ts_inv(coef, h, w, bd)
     dev = coef.device
     mh = _mat(kind_v, h, dev)
     mw = _mat(kind_h, w, dev)
@@ -380,9 +399,10 @@ _TX_CONST: dict = {}
 
 def _tx_const(cands: tuple, s: int, device):
     """(C, s, s) float64 stacks of each candidate's vertical and
-    horizontal primary kernels (LFNST candidates ride the DCT-II pair),
-    read from rom.tr_matrix at call time."""
-    pairs = [MTS_SET[mk] for mk, _ in cands]
+    horizontal primary kernels (LFNST candidates ride the DCT-II pair, and
+    so does transform skip, index 5, whose results are overwritten), read
+    from rom.tr_matrix at call time."""
+    pairs = [MTS_SET[0 if mk == 5 else mk] for mk, _ in cands]
     srcs = tuple(rom.tr_matrix(k, s) for kh, kv in pairs for k in (kv, kh))
     key = (cands, s, str(device))
     hit = _TX_CONST.get(key)
@@ -398,16 +418,19 @@ _MTS_ROWS = tuple((k, 0) for k in range(5))
 
 def inverse_transform_rows(coef, s: int, midx, bd: int = 8):
     """inverse_transform of (B, s, s) coefficients with each row's MTS
-    pair MTS_SET[midx] ((B,) index, clamped to 0..4): a gather of the
-    kernels and one batched product pair."""
+    pair MTS_SET[midx] ((B,) index): a gather of the kernels and one
+    batched product pair; rows of index 5 (transform skip) take its
+    rounding shift instead."""
     mh, mw = _tx_const(_MTS_ROWS, s, coef.device)
     i = midx.long().clamp(0, 4)
     gh, gw = mh[i], mw[i]
     st2 = 20 - bd
     e = ((_mm(gh.transpose(-1, -2), coef.to(torch.float64)) + 64) >> 7) \
         .clamp(COEFF_MIN, COEFF_MAX)
-    x = (_mm(e.to(torch.float64), gw) + (1 << (st2 - 1))) >> st2
-    return x.clamp(COEFF_MIN, COEFF_MAX)
+    x = ((_mm(e.to(torch.float64), gw) + (1 << (st2 - 1))) >> st2).clamp(
+        COEFF_MIN, COEFF_MAX)
+    return torch.where((midx == 5)[:, None, None], _ts_inv(coef, s, s, bd),
+                       x)
 
 
 def tx_bits(qp: int):
@@ -435,17 +458,19 @@ def lvl_weights(qp: int, device):
 _CAND_CONST: dict = {}
 
 
-def _cand_const(cands: tuple, mts: bool, lfnst: bool, qp: int, device):
+def _cand_const(cands: tuple, mts: bool, lfnst: bool, ts: bool, qp: int,
+                device):
     """Per-candidate device constants of choose_tx, built once per
     (candidates, qp, device) so that no call uploads from the host: the
-    index bits (8.8; the LFNST index is coded after DCT-II only), the
-    non-DCT-II mask and the (mts, lfnst) index of each candidate."""
-    key = (cands, mts, lfnst, int(qp), str(device), est.flat_bits())
+    index bits (8.8; the transform index is coded with MTS or transform
+    skip, the LFNST index after DCT-II only), the non-DCT-II mask and the
+    (mts, lfnst) index of each candidate."""
+    key = (cands, mts, lfnst, ts, int(qp), str(device), est.flat_bits())
     hit = _CAND_CONST.get(key)
     if hit is None:
         tb = tx_bits(qp)
         mts_fp, lfnst_fp = tb.mts_fp, tb.lfnst_fp
-        bits = np.asarray([(int(mts_fp[mk]) if mts else 0)
+        bits = np.asarray([(int(mts_fp[mk]) if mts or ts else 0)
                            + (int(lfnst_fp[lk]) if lfnst and mk == 0 else 0)
                            for mk, lk in cands], np.int32)
         pen = np.asarray([(mk, lk) != (0, 0) for mk, lk in cands])
@@ -457,21 +482,25 @@ def _cand_const(cands: tuple, mts: bool, lfnst: bool, qp: int, device):
 
 def choose_tx(resi, s: int, qp: int, lam_rd: int, mode, bd: int = 8,
               mts: bool = True, lfnst: bool = False, rdoq: bool = False,
-              allow=None, dq: bool = False):
-    """Joint MTS/LFNST RD choice for (B, s, s) luma residuals with (B,)
-    modes: every candidate of ``tx_candidates(mts, lfnst)`` is transformed,
-    quantised, reconstructed and costed in one stacked pass, and the first
-    minimum in candidate order wins.  ``allow`` ((B,) bool, optional):
-    where False every candidate but DCT-II alone costs 2^29 more (MIP
-    leaves).  Returns (mts_idx (B,), lfnst_idx (B,), levels (B, s, s),
-    reconstructed residual (B, s, s)), int32."""
+              allow=None, dq: bool = False, ts: bool = False):
+    """Joint MTS/TS/LFNST RD choice for (B, s, s) luma residuals with (B,)
+    modes: every candidate of ``tx_candidates(mts, lfnst, ts)`` is
+    transformed, quantised, reconstructed and costed in one stacked pass,
+    and the first minimum in candidate order wins.  Transform skip (index
+    5, after the MTS pairs) is the residual shifted by transform_shift.
+    ``allow`` ((B,) bool, optional): where False every candidate but
+    DCT-II alone costs 2^29 more (MIP leaves).  Returns (mts_idx (B,),
+    lfnst_idx (B,), levels (B, s, s), reconstructed residual (B, s, s)),
+    int32."""
     dev = resi.device
-    cands = tuple(tx_candidates(mts, lfnst))
+    cands = tuple(tx_candidates(mts, lfnst, ts))
+    # transform skip's slot sits between the MTS and LFNST candidates
+    ti = cands.index((5, 0)) if ts else None
     # the two LFNST candidates come last and ride the DCT-II primaries
     ls = slice(len(cands) - 2, len(cands)) if lfnst else None
     B = resi.shape[0]
     mh, mw = _tx_const(cands, s, dev)
-    bits, pen, idx_c = _cand_const(cands, mts, lfnst, qp, dev)
+    bits, pen, idx_c = _cand_const(cands, mts, lfnst, ts, qp, dev)
 
     st1 = _log2(s) + bd - 9
     st2 = _log2(s) + 6
@@ -486,6 +515,8 @@ def choose_tx(resi, s: int, qp: int, lam_rd: int, mode, bd: int = 8,
         tr2 = tr[:, None].expand(B, 2)
         coef[:, ls] = _corner(_lfnst_fwd4(coef[:, :1, :4, :4].expand(
             B, 2, 4, 4), kmat, tr2), coef[:, ls])
+    if ts:
+        coef[:, ti] = _ts_fwd(x, s, s, bd)
 
     lev = quantize(coef, s, s, qp, intra=True, bd=bd, rdoq=rdoq,
                    lam_rd=lam_rd, dq=dq)
@@ -499,6 +530,8 @@ def choose_tx(resi, s: int, qp: int, lam_rd: int, mode, bd: int = 8,
         .clamp(COEFF_MIN, COEFF_MAX)
     rec = ((_mm(ei.to(torch.float64), mw) + (1 << (st2i - 1))) >> st2i) \
         .clamp(COEFF_MIN, COEFF_MAX)
+    if ts:
+        rec[:, ti] = _ts_inv(dqc[:, ti], s, s, bd)
 
     dist = ((x[:, None] - rec) ** 2).sum((-2, -1), dtype=torch.int32)
     rate_fp = level_rate_fp(lev, lvl_weights(qp, dev), dims=(-2, -1)) + bits

@@ -12,9 +12,12 @@ plus the multi-type tree (BT and TT splits) and VVC's intra toolset
 (MTS, LFNST, ISP, MIP, MRL, CCLM) in every slice type and its inter
 toolset (BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR,
 SMVD, SBT; DMVR and BDOF in BI-symmetric pictures only), dependent
-quantization, LMCS (one model per frame, derived on the host from the
-source luma and signalled in its slice header) and ALF with CC-ALF
-(parameters derived on the host, filters on the device).  All-intra
+quantization, transform skip, joint Cb-Cr residuals, LMCS (one model per
+frame, derived on the host from the source luma and signalled in its
+slice header) and ALF with CC-ALF (parameters derived on the host,
+filters on the device), MCTF (the source's anchor pictures prefiltered on
+the device, coding/mctf.py) and rate control (one frame per group, each
+frame's QP from the bits of the frames before it).  All-intra
 frames are reconstructed in groups of up to eight per frame-batched
 wave; one temporal layer's B frames are decided frame by frame and
 reconstructed in one frame-batched wave, each frame with its own LMCS
@@ -35,6 +38,7 @@ from torch.profiler import record_function
 
 from .. import device as devmod
 from ..coding import decide as tdecide
+from ..coding import mctf as tmctf
 from ..core import bitstream as bs
 from ..core import trace as _trace
 from ..dist.subpic import decode_subpics, encode_subpics, subpic_rects
@@ -48,8 +52,8 @@ from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
 # EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("tskip", "jccr", "ibc", "plt", "mctf")
-_SPS_OFF = ("ts", "jccr", "ibc", "plt")
+_OFF_TOOLS = ("ibc", "plt")
+_SPS_OFF = ("ibc", "plt")
 # frames per frame-batched wave
 _GROUP = 8
 
@@ -57,8 +61,6 @@ _GROUP = 8
 def check_config(cfg: sseq.EncoderConfig) -> None:
     """Raise ValueError for a configuration outside this slice."""
     bad = [t for t in _OFF_TOOLS if getattr(cfg, t)]
-    if cfg.rc_bits_per_frame:
-        bad.append("rate control")
     if not cfg.rdoq:
         bad.append("rdoq=False")
     if cfg.ctu != 64:
@@ -67,8 +69,8 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
         bad.append(f"bit_depth={cfg.bit_depth}")
     if bad:
         raise ValueError("outside the PyTorch port's slice (CTU 64, 8 or "
-                         "10 bits, RDOQ on; no rate control, IBC, palette, "
-                         "TS, JCCR or MCTF): " + ", ".join(bad))
+                         "10 bits, RDOQ on; no IBC or palette): "
+                         + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
@@ -97,7 +99,8 @@ def _wave_tools(sps: hls.SPS, sym: bool) -> dict:
                 ciip=sps.ciip_enabled, gpm=sps.gpm_enabled,
                 affine=sps.affine_enabled, dmvr=sps.dmvr_enabled and sym,
                 bdof=sps.bdof_enabled and sym, sbt=sps.sbt_enabled,
-                dq=sps.dq_enabled)
+                dq=sps.dq_enabled, tskip=sps.ts_enabled,
+                jccr=sps.jccr_enabled)
 
 
 def _decide_tools(sps: hls.SPS, stype) -> dict:
@@ -156,8 +159,8 @@ def _wave_frame(sps, pps, dec, py, pcb, pcr, dpb, ref_pocs, device,
 
 
 # 8x8-granule factor of each frame_wave_batch output (recon and levels
-# of Y, Cb, Cr, then the four tool planes)
-_OUT_SCALE = (1, 2, 2, 1, 2, 2, 8, 8, 8, 8)
+# of Y, Cb, Cr, then the five tool planes)
+_OUT_SCALE = (1, 2, 2, 1, 2, 2, 8, 8, 8, 8, 8)
 
 
 def _wave(frames_m, sps, **kw):
@@ -241,6 +244,9 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
                 fr, c, device=dev, stage_times=stage_times,
                 layer_times=layer_times, decisions_out=decisions_out),
             threads=False)
+    if cfg.mctf:
+        with _stage("mctf", stage_times, dev):
+            frames = tmctf.temporal_filter(frames, cfg.gop, device=dev)
     h, w = frames[0][0].shape
     sps = cfg.make_sps(w, h)
     pps = hls.PPS(init_qp=cfg.qp, entropy_sync=cfg.wpp,
@@ -255,19 +261,35 @@ def encode_sequence(frames, cfg: sseq.EncoderConfig, device=None,
     dpb = None if cfg.intra_period == 1 else {}
     mot = {}   # poc -> motion_record (TMVP side table)
     plan = sseq.gop_plan(len(frames), cfg.intra_period, cfg.gop)
+    # rate control: each frame's QP offset comes from the bits of the
+    # frames coded before it, so every group is one frame
+    rc = sseq.RateControl(cfg.rc_bits_per_frame) \
+        if cfg.rc_bits_per_frame > 0 else None
     # host entropy of frame i overlaps the device passes of frame i + 1;
     # one worker keeps coding order (syntax tracing needs the main thread)
     pool = None if _trace.enabled else ThreadPoolExecutor(max_workers=1)
     try:
         pi = 0
         while pi < len(plan):
-            grp = _b_group(plan, pi, all_intra=dpb is None)
+            grp = _b_group(plan, pi, all_intra=dpb is None,
+                           cap=1 if rc is not None else _GROUP)
             pi += len(grp)
             _, stype, _, qpd = grp[0]
-            with _stage(f"layer {_tid(stype, qpd)}", layer_times, dev):
-                decs = _encode_group(frames, cfg, sps, pps, grp, dpb, mot,
-                                     nals, recons, bits, pool, stage_times,
-                                     dev)
+            # the temporal sublayer follows the GOP plan's QP delta, before
+            # the rate controller's offset
+            tid = _tid(stype, qpd)
+            if rc is not None:
+                qpd = max(0, min(63 - cfg.qp, qpd + rc.qp_offset()))
+            with _stage(f"layer {tid}", layer_times, dev):
+                decs = _encode_group(frames, cfg, sps, pps, grp, qpd, tid,
+                                     dpb, mot, nals, recons, bits, pool,
+                                     stage_times, dev)
+            if rc is not None:
+                # the frame's bits exist once its entropy job is done (the
+                # overlap with the next frame is lost, as in the reference)
+                if hasattr(nals[-1], "result"):
+                    nals[-1].result()
+                rc.update(bits[grp[0][0]])
             if decisions_out is not None:
                 decisions_out.extend(decs)
         flat = []
@@ -286,20 +308,20 @@ def _sym(poc: int, refs) -> bool:
             and poc - refs[0] == refs[1] - poc)
 
 
-def _b_group(plan, i, all_intra: bool = False):
-    """Maximal run plan[i:j], at most _GROUP long, of mutually-independent
+def _b_group(plan, i, all_intra: bool = False, cap: int = _GROUP):
+    """Maximal run plan[i:j], at most ``cap`` long, of mutually-independent
     entries: in all-intra, consecutive I entries; otherwise B entries
     with equal qp_delta and equal BI symmetry — the frames of one
     temporal layer under the breadth-first GOP plan (twin of the
     reference's)."""
     if all_intra:
-        return plan[i:i + _GROUP]
+        return plan[i:i + cap]
     p0, s0, r0, q0 = plan[i]
     if s0 != hls.SLICE_B or len(r0) != 2:
         return plan[i:i + 1]
     grp = [plan[i]]
     pocs = {p0}
-    for j in range(i + 1, min(len(plan), i + _GROUP)):
+    for j in range(i + 1, min(len(plan), i + cap)):
         poc, stype, refs, qpd = plan[j]
         if (stype != hls.SLICE_B or len(refs) != 2 or qpd != q0
                 or _sym(poc, refs) != _sym(p0, r0)
@@ -310,15 +332,15 @@ def _b_group(plan, i, all_intra: bool = False):
     return grp
 
 
-def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
-                  pool, stage_times, dev):
+def _encode_group(frames, cfg, sps, pps, grp, qpd, tid, dpb, mot, nals,
+                  recons, bits, pool, stage_times, dev):
     """Encode plan entries that share slice type and QP and reference no
-    picture among themselves: the decisions of every frame (on the
-    unmapped source), with LMCS each frame's model from its source luma,
-    one frame-batched wave (on the mapped source luma), then each
-    frame's loop filters and entropy.  ``dpb`` is None in all-intra.
-    Returns the frames' decisions."""
-    qpd = grp[0][3]
+    picture among themselves, at QP cfg.qp + ``qpd`` in temporal sublayer
+    ``tid``: the decisions of every frame (on the unmapped source), with
+    LMCS each frame's model from its source luma, one frame-batched wave
+    (on the mapped source luma), then each frame's loop filters and
+    entropy.  ``dpb`` is None in all-intra.  Returns the frames'
+    decisions."""
     qp = cfg.qp + qpd
     decs, padded_l, frs, models = [], [], [], []
     for poc, stype, ref_pocs, _ in grp:
@@ -362,7 +384,7 @@ def _encode_group(frames, cfg, sps, pps, grp, dpb, mot, nals, recons, bits,
                   grp, decs, padded_l, outs, models)]
     for (poc, stype, ref_pocs, _), dec, out, (chain, alf_params), (cw, _) \
             in zip(grp, decs, outs, chains, models):
-        _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, out,
+        _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, tid, out,
                     chain, alf_params, cw, mot, nals, recons, bits, pool,
                     stage_times, dev)
     return decs
@@ -396,18 +418,20 @@ def _filter_frame(cfg, sps, dec, padded, poc, qp, scan_out, dpb,
     return chain, alf_params
 
 
-def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
-                chain, alf_params, lmcs_cw, mot, nals, recons, bits, pool,
-                stage_times, dev):
+def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, tid,
+                scan_out, chain, alf_params, lmcs_cw, mot, nals, recons, bits,
+                pool, stage_times, dev):
     """Tail of one frame: one fetch of its levels, tool planes and filter
     outputs, the chosen tool indices into ``dec``, then host entropy and
-    NAL units (on the pool's worker when there is one); ``lmcs_cw`` is
-    the frame's LMCS model for its slice header (() without LMCS)."""
+    NAL units of temporal sublayer ``tid`` (on the pool's worker when
+    there is one); ``lmcs_cw`` is the frame's LMCS model for its slice
+    header (() without LMCS)."""
     is_intra = stype == hls.SLICE_I
     with _stage("fetch", stage_times, dev):
-        (ly, lcb, lcr, mtsp, lfnstp, cmodep, sbtp, cy, ccb, ccr, sao_t,
-         sao_o, sao_b) = _fetch(list(scan_out[3:10]) + list(chain))
-    if sps.mts_enabled:
+        (ly, lcb, lcr, mtsp, lfnstp, cmodep, sbtp, jccrp, cy, ccb, ccr,
+         sao_t, sao_o, sao_b) = _fetch(list(scan_out[3:11]) + list(chain))
+    # the transform index plane carries transform skip (index 5) too
+    if sps.mts_enabled or sps.ts_enabled:
         dec.mts8[:] = mtsp.astype(np.uint8)
     if sps.lfnst_enabled:
         dec.lfnst8[:] = lfnstp.astype(np.uint8)
@@ -415,6 +439,8 @@ def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
         dec.cmode8[:] = cmodep.astype(np.uint8)
     if sps.sbt_enabled:
         dec.sbt8[:] = sbtp.astype(np.uint8)
+    if sps.jccr_enabled:
+        dec.jccr8[:] = jccrp.astype(np.uint8)
     sh = hls.SliceHeader(poc=poc, slice_type=stype, qp_delta=qpd,
                          ref_pocs=ref_pocs, lmcs_cw=lmcs_cw)
     rec = [cy, ccb, ccr]
@@ -435,7 +461,6 @@ def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
         cropped = scodec.crop_planes(rec, sps)
         recons[poc] = cropped
         bits[poc] = 8 * len(payload)
-        tid = _tid(stype, qpd)
         return [bs.NalUnit(bs.NAL_IDR_N_LP if is_intra else bs.NAL_TRAIL,
                            payload, temporal_id=tid),
                 bs.NalUnit(bs.NAL_SUFFIX_SEI,
@@ -447,6 +472,22 @@ def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, scan_out,
         nals.append(pool.submit(tail))
     else:
         nals.extend(tail())
+
+
+def slice_qps(data: bytes) -> dict:
+    """poc -> the QP of its slice, read from the slice headers of a stream
+    (rate control moves it off the GOP plan's; with subpictures, the
+    last layer's)."""
+    init_qp, qps = {}, {}
+    for nal in bs.read_annexb(data):
+        if nal.nal_type == bs.NAL_PPS:
+            p = hls.PPS.read(nal.payload)
+            init_qp[p.pps_id] = p.init_qp
+        elif nal.nal_type in (bs.NAL_IDR_N_LP, bs.NAL_IDR_W_RADL,
+                              bs.NAL_TRAIL, bs.NAL_CRA):
+            sh = hls.SliceHeader.read(bs.BitReader(nal.payload))
+            qps[sh.poc] = init_qp[sh.pps_id] + sh.qp_delta
+    return qps
 
 
 def decode_sequence(data: bytes, check_hash: bool = True, device=None,
@@ -471,9 +512,7 @@ def decode_sequence(data: bytes, check_hash: bool = True, device=None,
     i = 0
     while i < len(entries):
         grp = _dec_group(entries, i)
-        sh = grp[0]["sh"]
-        with _stage(f"layer {_tid(sh.slice_type, sh.qp_delta)}",
-                    layer_times, dev):
+        with _stage(f"layer {grp[0]['tid']}", layer_times, dev):
             done = _decode_group(grp, sps, pps_map, dpb, dev, stage_times)
             for pe, pr in pending:
                 _dec_fetch(pe, pr, sps, frames, check_hash, stage_times, dev)
@@ -528,7 +567,7 @@ def _parse(data: bytes, check_hash: bool):
             mot[sh.poc] = scodec.motion_record(dec, sh.ref_pocs)
             entries.append(dict(sh=sh, dec=dec, levels=levels,
                                 sao=sao_params, alf=alf_params,
-                                digest=None))
+                                digest=None, tid=nal.temporal_id))
         elif nal.nal_type == bs.NAL_SUFFIX_SEI and check_hash and entries:
             parsed = hls.read_pic_hash_sei(nal.payload)
             if parsed is not None:

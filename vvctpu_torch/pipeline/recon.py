@@ -99,17 +99,22 @@ def _component(src, pred, f, xs, ys, w: int, h: int, qp: int, bd: int,
 
 
 def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
-              rdoq: bool, lam_rd: int, dq: bool = False, crs_sc=None):
-    """Chroma prediction choice of a batch of leaves (twin of the
-    reference's chroma_rd_j): each (Cb, Cr) prediction pair of
-    ``pred_opts`` (DM first, then CCLM) is coded, reconstructed and costed
-    in one stacked pass; the first minimum in option order wins.
+              rdoq: bool, lam_rd: int, dq: bool = False, crs_sc=None,
+              jccr: bool = False):
+    """Chroma choice of a batch of leaves (twin of the reference's
+    chroma_rd_j): each (Cb, Cr) prediction pair of ``pred_opts`` (DM
+    first, then CCLM) is coded separately and, with ``jccr``, jointly (one
+    residual (rcb - rcr) >> 1 that Cb adds and Cr subtracts), all in one
+    stacked pass; the first minimum in the order (option 0 separate,
+    option 0 joint, option 1 separate, ...) wins.
 
     bcbk, bcrk: (B, cs, cs) source blocks; pred_opts: [(pred_cb, pred_cr)]
     of (B, cs, cs); crs_sc: None or the (B,) LMCS chroma residual scales
-    (the distortion is taken between scaled residuals).  Returns (lev_cb,
-    lev_cr, rec_cb, rec_cr, use_c) with use_c the (B,) index of the
-    chosen option."""
+    (the residuals are scaled before the joint one is formed, and the
+    distortion is taken between scaled residuals).  Returns (lev_cb,
+    lev_cr, rec_cb, rec_cr, use_c, use_j) with use_c the (B,) index of the
+    chosen option and use_j (B,) 1 where the joint candidate won (its Cr
+    levels are zero), else None without ``jccr``."""
     dev = bcbk.device
     P = len(pred_opts)
     mx = (1 << bd) - 1
@@ -117,7 +122,10 @@ def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
            + [bcrk - pcr for _, pcr in pred_opts])
     if crs_sc is not None:
         res = [crs_fwd(r, crs_sc) for r in res]
-    coef = transform.forward_transform(torch.stack(res, 1), cs, cs, bd=bd)
+    if jccr:
+        res += [(res[i] - res[P + i]) >> 1 for i in range(P)]
+    res = torch.stack(res, 1)
+    coef = transform.forward_transform(res, cs, cs, bd=bd)
     lev = transform.quantize(coef, cs, cs, qp, intra=True, bd=bd,
                              rdoq=rdoq, lam_rd=lam_rd, dq=dq)
     rr = transform.inverse_transform(
@@ -125,21 +133,42 @@ def chroma_rd(bcbk, bcrk, pred_opts, cs: int, qp: int, bd: int,
     rate_fp = transform.level_rate_fp(
         lev, transform.lvl_weights(qp, dev), dims=(-2, -1)).clamp(
         max=1 << 22)
-    rate_w, rate_f = rate_fp >> 8, rate_fp & 255
-    dist = ((torch.stack(res, 1) - rr).abs().clamp(max=2047) ** 2).sum(
-        (-2, -1), dtype=torch.int32)
-    cost = (dist[:, :P] + dist[:, P:] + lam_rd * rate_w[:, :P]
-            + ((lam_rd * rate_f[:, :P]) >> 8) + lam_rd * rate_w[:, P:]
-            + ((lam_rd * rate_f[:, P:]) >> 8))
-    i = torch.argmin(cost, dim=1)
+    rate = lam_rd * (rate_fp >> 8) + ((lam_rd * (rate_fp & 255)) >> 8)
+
+    def dist(a, b):
+        return ((a - b).abs().clamp(max=2047) ** 2).sum((-2, -1),
+                                                        dtype=torch.int32)
+
+    sep = (dist(res[:, :P], rr[:, :P]) + dist(res[:, P:2 * P],
+                                                rr[:, P:2 * P])
+           + rate[:, :P] + rate[:, P:2 * P])
+    if jccr:
+        rj = rr[:, 2 * P:]
+        joint = (dist(res[:, :P], rj) + dist(res[:, P:2 * P], -rj)
+                 + rate[:, 2 * P:])
+        cost = torch.stack([sep, joint], 2).flatten(1)
+    else:
+        cost = sep
+    k = torch.argmin(cost, dim=1)
+    i, j = (k >> 1, k & 1) if jccr else (k, None)
     b = torch.arange(i.shape[0], device=dev)
     pcb = torch.stack([p for p, _ in pred_opts], 1)[b, i]
     pcr = torch.stack([p for _, p in pred_opts], 1)[b, i]
+    lev_cb, lev_cr = lev[b, i], lev[b, P + i]
     rcb, rcr = rr[b, i], rr[b, P + i]
+    if jccr:
+        jm = (j > 0)[:, None, None]
+        rjb = rr[b, 2 * P + i]
+        lev_cb = torch.where(jm, lev[b, 2 * P + i], lev_cb)
+        lev_cr = torch.where(jm, 0, lev_cr)
+        rcb = torch.where(jm, rjb, rcb)
     if crs_sc is not None:
         rcb, rcr = crs_inv(rcb, crs_sc), crs_inv(rcr, crs_sc)
-    return (lev[b, i], lev[b, P + i], (pcb + rcb).clamp(0, mx),
-            (pcr + rcr).clamp(0, mx), i.to(torch.int32))
+    rec_cr = pcr + rcr
+    if jccr:
+        rec_cr = torch.where(jm, pcr - rcb, rec_cr)
+    return (lev_cb, lev_cr, (pcb + rcb).clamp(0, mx), rec_cr.clamp(0, mx),
+            i.to(torch.int32), None if j is None else j.to(torch.int32))
 
 
 def fill8(plane, vals, f, xs, ys, w: int, h: int):

@@ -225,17 +225,20 @@ _comp_local = recon._component
 _gather = recon._gather
 
 
-def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
+def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, jflag, *, s: int,
                  frame_w: int, frame_h: int, n_ctu_x: int, log2_ctu: int,
                  qp: int, bd: int, encode: bool, rdoq: bool, lam_rd: int,
-                 cclm: bool, dq: bool = False):
+                 cclm: bool, jccr: bool = False, dq: bool = False):
     """Chroma part of a batch of B square intra leaves: DM prediction or,
-    with ``cclm``, the RD choice between DM and CCLM (encode) or the
-    signalled choice ``cmode`` (decode); separate Cb/Cr residuals, with
-    LMCS scaled by each leaf's CRS scale from its luma recon ``rec_y``.
-    Cb and Cr run as one batch of 2B rows over the stacked chroma planes
-    (Cb frames, then Cr frames).  Returns (rec, lev, use_cclm or None),
-    rec and lev (2B, s/2, s/2) with the Cb rows first."""
+    with ``cclm``, the choice between DM and CCLM, and with ``jccr`` the
+    choice between separate and joint Cb-Cr residuals: the RD choice when
+    encoding (recon.chroma_rd), the signalled choices ``cmode`` and
+    ``jflag`` ((B,) or None where no row of the batch uses the tool) when
+    decoding; with LMCS the residuals are scaled by each leaf's CRS scale
+    from its luma recon ``rec_y``.  Cb and Cr run as one batch of 2B rows
+    over the stacked chroma planes (Cb frames, then Cr frames).  Returns
+    (rec, lev, use_cclm or None, use_jccr or None), rec and lev (2B, s/2,
+    s/2) with the Cb rows first."""
     cs = s // 2
     cx2, cy2 = x // 2, y // 2
     x2, y2, f2 = _chroma_rows(carry, f, x, y)
@@ -246,24 +249,35 @@ def _chroma_leaf(carry, rec_y, f, x, y, mode_dm, cmode, *, s: int,
         f=f2)
     pred = intra_pred.predict(top, left, torch.cat([mode_dm, mode_dm]),
                               s=cs, is_luma=False, bd=bd)
-    use_c = None
+    B = x.shape[0]
+    opts = [pred]
     if cclm:
-        lm = torch.cat(intra_pred.cclm_predict_pair(
+        opts.append(torch.cat(intra_pred.cclm_predict_pair(
             carry["by"], (carry["bcb"], carry["bcr"]), rec_y, cx2, cy2,
-            cs=cs, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd, f=f))
-        if encode:
-            B = x.shape[0]
-            src = _gather(carry["sc"], f2, x2, y2, cs, cs)
-            lev_cb, lev_cr, rcb, rcr, use_c = recon.chroma_rd(
-                src[:B], src[B:], [(pred[:B], pred[B:]), (lm[:B], lm[B:])],
-                cs, qp, bd, rdoq, lam_rd, dq, None if sc is None else sc[:B])
-            return (torch.cat([rcb, rcr]), torch.cat([lev_cb, lev_cr]),
-                    use_c)
+            cs=cs, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, bd=bd, f=f)))
+    if encode and (cclm or jccr):
+        src = _gather(carry["sc"], f2, x2, y2, cs, cs)
+        lev_cb, lev_cr, rcb, rcr, use_c, use_j = recon.chroma_rd(
+            src[:B], src[B:], [(p[:B], p[B:]) for p in opts], cs, qp, bd,
+            rdoq, lam_rd, dq, None if sc is None else sc[:B], jccr)
+        return (torch.cat([rcb, rcr]), torch.cat([lev_cb, lev_cr]), use_c,
+                use_j)
+    if cclm and not encode:
         pred = torch.where((torch.cat([cmode, cmode]) > 0)[:, None, None],
-                           lm, pred)
+                           opts[1], pred)
     rec, lev = _comp_local(carry["sc"], pred, f2, x2, y2, cs, cs, qp, bd,
                            encode, rdoq, lam_rd, dq, sc)
-    return rec, lev, use_c
+    if jflag is not None:
+        # a joint leaf's Cr is its prediction less the Cb residual
+        r_cb = transform.inverse_transform(
+            transform.dequantize(lev[:B], cs, cs, qp, bd, dq=dq), cs, cs,
+            bd=bd)
+        if sc is not None:
+            r_cb = recon.crs_inv(r_cb, sc[:B])
+        rec_cr = (pred[B:] - r_cb).clamp(0, (1 << bd) - 1)
+        rec = torch.cat([rec[:B], torch.where(
+            (jflag > 0)[:, None, None], rec_cr, rec[B:])])
+    return rec, lev, None, None
 
 
 def _chroma_rows(carry, f, x, y):
@@ -279,7 +293,7 @@ def _put_leaf(carry, f, x, y, w: int, h: int, rec_y, lev_y, chroma,
     """Scatter a batch of w x h leaves' recon (and, encoding, levels and
     tool indices, the latter on every 8x8 granule of each leaf, as the
     spec model records them) into the carry, in place."""
-    rec_c, lev_c, use_c = chroma
+    rec_c, lev_c, use_c, use_j = chroma
     x2, y2, f2 = _chroma_rows(carry, f, x, y)
     _scatter(carry["by"], rec_y, f, x, y, w, h, 1)
     _scatter(carry["bc"], rec_c, f2, x2, y2, w // 2, h // 2, 1)
@@ -292,17 +306,20 @@ def _put_leaf(carry, f, x, y, w: int, h: int, rec_y, lev_y, chroma,
         recon.fill8(carry["lfnstp"], lidx, f, x, y, w, h)
     if use_c is not None:
         recon.fill8(carry["cmodep"], use_c, f, x, y, w, h)
+    if use_j is not None:
+        recon.fill8(carry["jccrp"], use_j, f, x, y, w, h)
 
 
 def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
                  frame_w: int, frame_h: int, log2_ctu: int, bd: int,
                  encode: bool, rdoq: bool, mts: bool = False,
                  lfnst: bool = False, cclm: bool = False, mip: bool = False,
-                 dq: bool = False):
+                 tskip: bool = False, jccr: bool = False, dq: bool = False):
     """One dependency level's square intra s-leaves (of any frames):
     predict (angular on the row's reference line, or MIP), code and
-    reconstruct luma (with the MTS/LFNST choice) and chroma, scatter into
-    the carry (in place).  rows: (k, 17) device rows, frame index in
+    reconstruct luma (with the MTS/TS/LFNST choice) and chroma (with the
+    DM/CCLM and separate/joint choices), scatter into the carry (in
+    place).  rows: (k, 17) device rows, frame index in
     column 16; host: the same rows on the host, which skip the tools no
     row of the batch uses."""
     x, y, mode, f = rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 16]
@@ -323,13 +340,13 @@ def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
             top, left, mode - nm, s=s, bd=bd), pred_y)
         mode_dm = torch.where(is_mip, rom.PLANAR_IDX, mode)
     midx = lidx = None
-    if (mts or lfnst) and encode:
+    if (mts or lfnst or tskip) and encode:
         resi = _gather(carry["sy"], f, x, y, s, s) - pred_y
         midx, lidx, lev_y, rres = transform.choose_tx(
             resi, s, qp, lam_rd, mode_reg, bd, mts=mts, lfnst=lfnst,
-            rdoq=rdoq, allow=(mode < nm) if mip else None, dq=dq)
+            rdoq=rdoq, allow=(mode < nm) if mip else None, dq=dq, ts=tskip)
         rec_y = (pred_y + rres).clamp(0, (1 << bd) - 1)
-    elif (mts or lfnst) and host[:, 6:8].any():
+    elif (mts or lfnst or tskip) and host[:, 6:8].any():
         lev_y = _gather(carry["sy"], f, x, y, s, s)
         dqc = transform.dequantize(lev_y, s, s, qp, bd, dq=dq)
         if host[:, 7].any():
@@ -340,18 +357,27 @@ def _intra_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int,
         rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp,
                                    bd, encode, rdoq, lam_rd, dq)
     chroma = _chroma_leaf(
-        carry, rec_y, f, x, y, mode_dm, rows[:, 8], s=s, frame_w=frame_w,
+        carry, rec_y, f, x, y, mode_dm, rows[:, 8],
+        _jflag(rows, host, jccr, encode), s=s, frame_w=frame_w,
         frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
         encode=encode, rdoq=rdoq, lam_rd=lam_rd,
-        cclm=cclm and (encode or bool(host[:, 8].any())), dq=dq)
+        cclm=cclm and (encode or bool(host[:, 8].any())), jccr=jccr, dq=dq)
     _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, chroma, encode, midx,
               lidx)
+
+
+def _jflag(rows, host, jccr: bool, encode: bool):
+    """The decoder's (B,) joint Cb-Cr flags of a batch (slot column 10),
+    or None where the batch has none."""
+    if jccr and not encode and host[:, 10].any():
+        return rows[:, 10]
+    return None
 
 
 def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
                frame_w: int, frame_h: int, log2_ctu: int, bd: int,
                encode: bool, rdoq: bool, cclm: bool = False,
-               dq: bool = False):
+               jccr: bool = False, dq: bool = False):
     """One dependency level's ISP s-leaves split in direction ``d``: the
     stripes run in order, each predicted from a per-row window of the
     recon buffer that the previous stripes' recon patches in place, with
@@ -386,10 +412,11 @@ def _isp_batch(carry, rows, host, qp: int, lam_rd: int, *, s: int, d: int,
                                   dq=dq)
     rec_y = win[:, 1:s + 1, 1:s + 1]
     chroma = _chroma_leaf(
-        carry, rec_y, f, x, y, mode_reg, rows[:, 8], s=s, frame_w=frame_w,
+        carry, rec_y, f, x, y, mode_reg, rows[:, 8],
+        _jflag(rows, host, jccr, encode), s=s, frame_w=frame_w,
         frame_h=frame_h, n_ctu_x=n_ctu_x, log2_ctu=log2_ctu, qp=qp, bd=bd,
         encode=encode, rdoq=rdoq, lam_rd=lam_rd,
-        cclm=cclm and (encode or bool(host[:, 8].any())), dq=dq)
+        cclm=cclm and (encode or bool(host[:, 8].any())), jccr=jccr, dq=dq)
     _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, chroma, encode)
 
 
@@ -447,8 +474,8 @@ def _ciip_batch(carry, rows, refs, qp: int, lam_rd: int, *, s: int,
               >> 1).clamp(0, mx)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
                                bd, encode, rdoq, lam_rd, dq, sc)
-    _put_leaf(carry, f, x, y, s, s, rec_y, lev_y, (rec_c, lev_c, None),
-              encode)
+    _put_leaf(carry, f, x, y, s, s, rec_y, lev_y,
+              (rec_c, lev_c, None, None), encode)
 
 
 def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
@@ -487,8 +514,8 @@ def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
     sc = recon.crs_scale(carry.get("crs"), f, rec_y, w, h, reps=2)
     rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cw, ch, qp,
                                bd, encode, rdoq, lam_rd, dq, sc)
-    _put_leaf(carry, f, x, y, w, h, rec_y, lev_y, (rec_c, lev_c, None),
-              encode)
+    _put_leaf(carry, f, x, y, w, h, rec_y, lev_y,
+              (rec_c, lev_c, None, None), encode)
 
 
 # ---------------------------------------------------------------------------
@@ -511,9 +538,9 @@ def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
     {8/16/32 and the RECT_SHAPES: numpy phase-A rows}; fwd_lut, crs_lut:
     the frame's LMCS LUTs or None; tools: the tool flags of
     frame_wave_batch.  Returns (recon_y, recon_cb, recon_cr,
-    levels_y, levels_cb, levels_cr, mts, lfnst, cmode, sbt); the last four
-    are the 8x8 grids of the chosen tool indices (encoding; zero when
-    decoding)."""
+    levels_y, levels_cb, levels_cr, mts, lfnst, cmode, sbt, jccr); the
+    last five are the 8x8 grids of the chosen tool indices (encoding; zero
+    when decoding)."""
     fr = dict(slots=slots, py=planes_y, pcb=planes_cb, pcr=planes_cr)
     if inter_enabled:
         fr.update(refs=refs, inter=inter)
@@ -541,7 +568,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
                      mip: bool = False, ciip: bool = False,
                      dmvr: bool = False, bdof: bool = False,
                      gpm: bool = False, affine: bool = False,
-                     sbt: bool = False, dq: bool = False):
+                     sbt: bool = False, dq: bool = False,
+                     tskip: bool = False, jccr: bool = False):
     """Reconstruct F mutually independent frames of one slice type and QP
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
@@ -559,14 +587,16 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     encoding: the luma is reconstructed in the mapped domain, inter
     predictions are forward-mapped and chroma residuals scaled.  Frames
     with and without LMCS are not mixed in one call.  mts, lfnst, cclm,
-    mip: the SPS intra tools (MRL and ISP are read from the slot rows);
+    mip, tskip, jccr: the SPS intra tools (MRL and ISP are read from the
+    slot rows; transform skip and joint Cb-Cr residuals apply to square
+    intra leaves, JCCR to ISP leaves too);
     ciip: the CIIP leaf class of phase B; dmvr, bdof, gpm, affine: phase
     A's inter tools (DMVR and BDOF only for BI-symmetric frames, as the
     callers gate them); sbt: SBT in phase A; dq: dependent quantization
     in every leaf class.  The rectangular (BT and TT) leaves of the multi-type tree run
     in phase A (inter, the rect arrays of make_slots_split in ``inter``)
     and phase B (intra) wherever the slot tables hold them.  Returns a
-    list of per-frame 10-tuples, each equal to frame_wave's for that
+    list of per-frame 11-tuples, each equal to frame_wave's for that
     frame alone."""
     F = len(frames_in)
     lmcs = {fr.get("fwd_lut") is not None for fr in frames_in}
@@ -597,7 +627,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         mtsp=z(frame_h // 8, frame_w // 8),
         lfnstp=z(frame_h // 8, frame_w // 8),
         cmodep=z(frame_h // 8, frame_w // 8),
-        sbtp=z(frame_h // 8, frame_w // 8))
+        sbtp=z(frame_h // 8, frame_w // 8),
+        jccrp=z(frame_h // 8, frame_w // 8))
     if lmcs:
         # LMCS: each frame's own model, (F, 2^bd) LUTs that every leaf
         # row indexes with its frame index
@@ -649,10 +680,11 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         o += rows.shape[0]
         if kind == "intra":
             _intra_batch(carry, rt, rows, qp, lam_rd, s=w, mts=mts,
-                         lfnst=lfnst, cclm=cclm, mip=mip, **kw)
+                         lfnst=lfnst, cclm=cclm, mip=mip, tskip=tskip,
+                         jccr=jccr, **kw)
         elif kind == "isp":
             _isp_batch(carry, rt, rows, qp, lam_rd, s=w, d=d, cclm=cclm,
-                       **kw)
+                       jccr=jccr, **kw)
         elif kind == "ciip" and ciip and refs is not None:
             _ciip_batch(carry, rt, refs, qp, lam_rd, s=w, **kw)
         elif kind == "rect":
@@ -665,5 +697,5 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
              carry["bcr"][f, 1:h2 + 1, 1:w2 + 1],
              carry["ly"][f], carry["lcb"][f], carry["lcr"][f],
              carry["mtsp"][f], carry["lfnstp"][f], carry["cmodep"][f],
-             carry["sbtp"][f])
+             carry["sbtp"][f], carry["jccrp"][f])
             for f in range(F)]
