@@ -129,13 +129,32 @@ Phases, in order; any failure exits non-zero:
    the card (4 me_sad launches at lam 0), me_sad held against its twin
    at lam 0 on one of its searches and its blend against the spec
    model's arithmetic given the card's motion.
+11. intra block copy and palette (the screen-content leaf classes of I
+   slices), then CTU 128: (11a) test_ibc.py's two and test_palette.py's
+   three engine configurations, test_ctu128.py's configurations (the
+   same frame at CTU 64 and at 128 giving two streams) and 10a's 64x64
+   CTC clip at CTU 128 without rate control, encoded on the card, must
+   equal the spec model's bitstream and decisions and decode on the card
+   and in the spec model, hashes verified, with IBC and palette chosen
+   where they are on; (11b) 3 frames of 1080p synthetic screen content
+   all-intra QP32 with WPP, IBC, palette and config #2's intra toolset:
+   IBC and palette chosen in every frame, the IBC and palette leaf
+   classes in the wave, hashes verified, recon == decoded, with the
+   block-vector search's time on the card and the palette costs' on the
+   host, stage times, batches per leaf class and peak memory; (11c) VTM's
+   common-test-condition random-access toolset whole: 10b's
+   configuration at CTU 128 without rate control, 3 frames of 1080p
+   (padded to 1152 rows): hashes verified, recon == decoded, 3 me_sad
+   launches at 11 keys on 1152x1920, the trellis launched, its POC 0
+   printed beside 10b's.
 
-After phase 4 the script runs in four processes, each on a CUDA context
+After phase 4 the script runs in five processes, each on a CUDA context
 of its own: phase 5 in the first, phases 7 and 8 in a second, phases 9
-and 6 in a third, phases 3 and 10 in a fourth.  So the walls and card
-busy shares of phases 3 and 5 to 10 are measured with the others running
-(the card's busy share is the device's); the lines of phases 7 and 8,
-then 9 and 6, then 3 and 10 print after phase 5's.
+and 6 in a third, phases 3 and 10 in a fourth, phase 11 (11b, 11a, then
+11c) in a fifth.  So the walls and card busy shares of phases 3 and 5 to
+11 are measured with the others running (the card's busy share is the
+device's); the lines of phases 7 and 8, then 9 and 6, then 3 and 10,
+then 11 print after phase 5's.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -696,6 +715,29 @@ def _spec_clips():
                                        rc_bits_per_frame=12000,
                                        **CTC_SMALL)),
         "mctf416": (synth_frames(5, 240, 416, seed=6), dict(filter_gop=4)),
+        # phase 11: test_ibc.py:67's two configs, test_palette.py:86's
+        # three, test_ctu128.py's (the same frame at CTU 64 and 128
+        # apart) and 10a's CTC clip at CTU 128 without rate control
+        "ibc": ([glyph_planes(128, 128, seed=5)], dict(qp=32, ibc=True)),
+        "ibc_mtt": ([glyph_planes(128, 128, seed=5)],
+                    dict(qp=32, ibc=True, mtt=True, dq=True, mts=True)),
+        "plt": (_plt_pair(), dict(qp=32, plt=True)),
+        "plt_ibc_lmcs": (_plt_pair(), dict(qp=32, plt=True, ibc=True,
+                                           lmcs=True)),
+        "plt_tiles": (_plt_pair(), dict(qp=32, plt=True, tile_cols=2,
+                                        tile_rows=1)),
+        "c128_ai": (ctu128_frames(1, 140, 190),
+                    dict(qp=32, ctu=128, mts=True)),
+        "c128_at64": (ctu128_frames(1, 128, 192), dict(qp=30, ctu=64)),
+        "c128_at128": (ctu128_frames(1, 128, 192), dict(qp=30, ctu=128)),
+        "c128_gop2": (ctu128_frames(3, 128, 192, seed=11),
+                      dict(qp=32, ctu=128, intra_period=0, gop=2)),
+        "c128_wpp": (ctu128_frames(1, 256, 192, seed=12),
+                     dict(qp=32, ctu=128, wpp=True)),
+        "c128_mtt": (ctu128_frames(1, 128, 192, seed=13),
+                     dict(qp=32, ctu=128, mtt=True, tt=True, isp=True)),
+        "c128_ctc": (ctc_frames(), dict(qp=27, intra_period=0, gop=2,
+                                        ctu=128, **CTC_SMALL)),
     }
 
 
@@ -879,6 +921,9 @@ def _run_full(dev, frames, cfg, decisions_out=None):
     r["launches"] = kme.launches
     r["dq_launches"] = kdq.launches
     r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the processes share the card's memory: give this run's cached
+    # blocks back before the next run in this process
+    torch.cuda.empty_cache()
     if not _same_planes(recons, out):
         raise AssertionError("encoder recon != decoder output")
     r["psnr"] = [float(tseq.psnr(f[0], x[0], cfg.bit_depth))
@@ -2365,7 +2410,8 @@ def _ctc_small(dev):
 
 def _ctc_full(dev):
     """10b: 8b's configuration with TS, JCCR, MCTF and rate control at
-    1080p; returns its kernel launches (me_sad, dq_trellis)."""
+    1080p; returns its kernel launches (me_sad, dq_trellis) and POC 0's
+    (bits, Y-PSNR)."""
     from vvctpu_torch.coding import mctf as tmctf
     from vvctpu_torch.spec import sequence as tseq
     n = 3
@@ -2405,7 +2451,7 @@ def _ctc_full(dev):
         lt = r[f"{k}_l"]
         print(f"{tag} {k}ode wall per temporal layer: " + ", ".join(
             f"{name} {lt[name]:.2f} s" for name in sorted(lt)))
-    return r["launches"], r["dq_launches"]
+    return r["launches"], r["dq_launches"], (r["bits"][0], r["psnr"][0])
 
 
 def _mctf_4k(dev):
@@ -2507,11 +2553,246 @@ def mctf_host_search(dev):
 def phase_ctc_tools(dev):
     """Phase 10: transform skip, joint Cb-Cr residuals, MCTF and rate
     control; returns the kernels' launches on the 1080p and 4K paths
-    (me_sad, dq_trellis) and me_sad's largest error against its twin."""
+    (me_sad, dq_trellis), me_sad's largest error against its twin and
+    10b's POC 0 (bits, Y-PSNR), its frame at QP 32."""
     _ctc_small(dev)
-    me_b, dq_b = _ctc_full(dev)
+    me_b, dq_b, i0 = _ctc_full(dev)
     me_c, err = _mctf_4k(dev)
-    return me_b + me_c, dq_b, err
+    return me_b + me_c, dq_b, err, i0
+
+
+# ---------------------------------------------------------------------------
+# phase 11: IBC and palette in I slices, then CTU 128
+# ---------------------------------------------------------------------------
+
+
+def glyph_planes(h, w, seed=4):
+    """test_ibc.py's screen frame: one random 16x16 glyph tiled over the
+    luma (every tile an exact copy of its neighbours), flat chroma."""
+    rng = np.random.default_rng(seed)
+    glyph = rng.integers(0, 255, (16, 16))
+    y = np.tile(glyph, (h // 16 + 1, w // 16 + 1))[:h, :w].astype(np.int32)
+    return [y, np.full((h // 2, w // 2), 128, np.int32),
+            np.full((h // 2, w // 2), 128, np.int32)]
+
+
+def flat_rect_planes(h, w, seed=3, n_colors=5):
+    """test_palette.py's screen frame: 12 random rectangles of a few flat
+    colours, chroma derived from the luma."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(16, 240, (n_colors,))
+    y = np.full((h, w), int(cols[0]), np.int32)
+    for _ in range(12):
+        x0 = int(rng.integers(0, w - 8))
+        y0 = int(rng.integers(0, h - 8))
+        ww = int(rng.integers(8, w - x0 + 1))
+        hh = int(rng.integers(8, h - y0 + 1))
+        y[y0:y0 + hh, x0:x0 + ww] = int(cols[rng.integers(0, n_colors)])
+    cb = 96 + (y[0::2, 0::2] % 64)
+    cr = 160 - (y[0::2, 0::2] % 32)
+    return [y, cb.astype(np.int32), cr.astype(np.int32)]
+
+
+def _plt_pair():
+    return [flat_rect_planes(64, 96, seed=7), flat_rect_planes(64, 96,
+                                                              seed=8)]
+
+
+def ctu128_frames(n, h, w, seed=9):
+    """test_ctu128.py's frames: the benchmark's pattern with noise, flat
+    Cb, a slow Cr wave."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(n):
+        y = (90 + 70 * np.sin((xx + 5 * t) / 11.0)
+             + 50 * np.cos((yy - 3 * t) / 8.0)
+             + rng.integers(-8, 8, (h, w))).clip(0, 255).astype(np.int32)
+        cb = np.full((h // 2, w // 2), 120, np.int32)
+        cr = (128 + 20 * np.sin(yy[::2, ::2] / 9.0)).astype(np.int32)
+        out.append([y, cb, cr])
+    return out
+
+
+def scc_frames(n, h, w, seed=0):
+    """Synthetic screen content of w x h, as a desktop shows it: a panel of
+    test_ibc.py's tiled glyphs (a third of the width), a panel of
+    test_palette.py's flat-colour rectangles scaled to the panel (a
+    third), and a text panel: lines of characters from a 16-glyph 8x12
+    bitmap font in two colours on a flat ground, every frame scrolled up
+    by one 16-row line.  Chroma is flat per panel, derived from the luma
+    in the rectangles' panel."""
+    rng = np.random.default_rng(seed)
+    w1, w2 = w // 3 // 8 * 8, 2 * (w // 3) // 8 * 8
+    glyph = glyph_planes(h, w1, seed=seed + 5)
+    rects = flat_rect_planes(h, w2 - w1, seed=seed + 7)
+    font = rng.integers(0, 2, (16, 12, 8)).astype(bool)
+    tw = w - w2
+    lines = h // 16 + n + 1
+    text = np.full((lines * 16, tw), 236, np.int32)
+    for li in range(lines):
+        chars = rng.integers(0, 16, tw // 8)
+        for ci, c in enumerate(chars[:int(rng.integers(tw // 16, tw // 8))]):
+            text[li * 16 + 2:li * 16 + 14, ci * 8:ci * 8 + 8] = np.where(
+                font[c], 20, 236)
+    out = []
+    for t in range(n):
+        y = np.concatenate([glyph[0], rects[0], text[16 * t:16 * t + h]],
+                           1).astype(np.int32)
+        cb = np.concatenate([glyph[1], rects[1],
+                             np.full((h // 2, tw // 2), 124, np.int32)], 1)
+        cr = np.concatenate([glyph[2], rects[2],
+                             np.full((h // 2, tw // 2), 131, np.int32)], 1)
+        out.append([y, cb, cr])
+    return out
+
+
+def _granules(decs, key):
+    return [int(getattr(d, key).sum()) for d in decs]
+
+
+def _scc_small(dev):
+    """11a: test_ibc.py's and test_palette.py's engine configs and
+    test_ctu128.py's configs (with 10a's CTC clip at CTU 128) against the
+    spec model."""
+    for name, what in (
+            ("ibc", "128x128 AI, IBC (test_ibc.py)"),
+            ("ibc_mtt", "128x128 AI, IBC with MTT, DQ, MTS (test_ibc.py)"),
+            ("plt", "64x96 AI, 2 frames, palette (test_palette.py)"),
+            ("plt_ibc_lmcs", "64x96 AI, 2 frames, palette with IBC and "
+                             "LMCS (test_palette.py)"),
+            ("plt_tiles", "64x96 AI, 2 frames, palette with a 2x1 tile "
+                          "grid (test_palette.py)")):
+        data, decs, _ = _held_to_spec(f"[11a] {what}", dev, name)
+        kw = _spec_clips()[name][1]
+        ibc, plt = _granules(decs, "ibc8"), _granules(decs, "plt8")
+        if (kw.get("ibc") and not sum(ibc)) or (kw.get("plt")
+                                                and not sum(plt)):
+            raise AssertionError(f"[11a] {what}: IBC granules {ibc}, "
+                                 f"palette granules {plt}")
+        print(f"[11a] {what}: {len(data)} bytes and decisions equal to the "
+              f"spec model; card and spec decoders verified hashes; 8x8 "
+              f"granules with IBC {ibc}, palette {plt} per frame")
+    got = {}
+    for name, what in (
+            ("c128_ai", "140x190 (256x256 padded) AI with MTS"),
+            ("c128_at64", "128x192 AI at CTU 64"),
+            ("c128_at128", "the same frame at CTU 128"),
+            ("c128_gop2", "128x192 GOP2, 3 frames"),
+            ("c128_wpp", "256x192 AI with WPP"),
+            ("c128_mtt", "128x192 AI with MTT, TT, ISP"),
+            ("c128_ctc", "10a's 64x64 GOP2 clip, 3 frames, with 6a's "
+                         "toolset, MTT, TT, LMCS, TS, JCCR, MCTF")):
+        data, _, _ = _held_to_spec(f"[11a] {what}", dev, name)
+        got[name] = data
+        print(f"[11a] {what} (test_ctu128.py): {len(data)} bytes and "
+              "decisions equal to the spec model; card and spec decoders "
+              "verified hashes")
+    if got["c128_at64"] == got["c128_at128"]:
+        raise AssertionError("[11a] CTU 64 and 128 streams are equal")
+
+
+def _scc_full(dev):
+    """11b: 3 frames of 1080p screen content, all-intra, with IBC, palette
+    and config #2's intra toolset; returns its kernel launches (me_sad,
+    dq_trellis)."""
+    from vvctpu_torch.coding import me as tme
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import codec as scodec
+    from vvctpu_torch.spec import palette as splt
+    from vvctpu_torch.spec import sequence as tseq
+    from vvctpu_torch.spec.decide import lambda_satd_fp
+    from vvctpu_torch.cabac import estimate as est
+    n, tag = 3, "[11b]"
+    cfg = tseq.EncoderConfig(qp=32, wpp=True, ibc=True, plt=True,
+                             **AI_TOOLS)
+    frames = scc_frames(n, 1080, 1920, seed=6)
+    # the two screen-content decision passes alone on frame 0: the block
+    # vector search on the card, the palette costs on the host
+    sps = cfg.make_sps(1920, 1080)
+    orig = scodec.pad_planes(frames[0], sps)[0]
+    lam, fp = lambda_satd_fp(32), int(est.decision_bits(2, 32).ibc_fp)
+    o = torch.as_tensor(orig, device=dev)
+    tme.ibc_pass(o, lam, frame_w=sps.width, frame_h=sps.height, ibc_fp=fp)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tme.ibc_pass(o, lam, frame_w=sps.width, frame_h=sps.height, ibc_fp=fp)
+    torch.cuda.synchronize()
+    t_ibc = time.time() - t0
+    t0 = time.time()
+    for s in (8, 16, 32):
+        splt.palette_size_pass(orig, s, lam, 8)
+    t_plt = time.time() - t0
+    del o
+    decs = []
+    r = _run_full(dev, frames, cfg, decisions_out=decs)
+    ibc, plt = _granules(decs, "ibc8"), _granules(decs, "plt8")
+    kinds = r["batch_kinds"]
+    if not (all(ibc) and all(plt) and kinds.get("ibc") and kinds.get("plt")):
+        raise AssertionError(f"{tag} IBC granules {ibc}, palette {plt}, "
+                             f"batches {kinds}")
+    if r["launches"] or r["dq_launches"]:
+        raise AssertionError(f"{tag} me_sad {r['launches']}, dq_trellis "
+                             f"{r['dq_launches']} launches (0 expected)")
+    print(f"{tag} 1080p screen content (glyphs, flat rectangles, scrolling "
+          f"text), AI QP32 WPP, IBC and palette with config #2's intra "
+          f"toolset, {n} frames: {sum(r['bits']) / n:.1f} bits/frame (new "
+          f"data: the reference never ran it), per frame {r['bits']}; "
+          f"8x8 granules with IBC {ibc}, palette {plt} (of "
+          f"{sps.width * sps.height // 64} per frame)")
+    print(f"{tag} ibc_pass on the card (host clock around work that ends in "
+          f"a sync, warm): {t_ibc:.4f} s per 1088x1920 frame; "
+          f"palette_size_pass (8, 16, 32) on the host {t_plt:.3f} s per "
+          f"frame; the encoder's palette stage (derive_plt_data and "
+          f"build_planes) {r['enc_t'].get('palette', 0.0) / n:.3f} s per "
+          f"frame")
+    _report(tag, r, n)
+    print(f"{tag} phase-B batches of the encode per leaf class: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(kinds.items())))
+    return r["launches"], r["dq_launches"]
+
+
+def _ctc128_full(dev):
+    """11c: VTM's CTC random-access toolset whole: 10b's configuration at
+    CTU 128 without rate control, on 10b's 3 frames of 1080p (I0 P2 B1);
+    returns (me_sad launches, dq_trellis launches, (POC 0's bits, its
+    Y-PSNR))."""
+    from vvctpu_torch.spec import sequence as tseq
+    n, tag = 3, "[11c]"
+    cfg = tseq.EncoderConfig(qp=32, intra_period=32, gop=2, wpp=True,
+                             ctu=128, sbt=True, dq=True, alf=True,
+                             lmcs=True, **CTC_TOOLS, **MTT, **RA_TOOLS)
+    r = _run_full(dev, synth_frames(n, 1080, 1920, seed=4), cfg)
+    if r["me_keys"] != [11] * 3 or r["me_shapes"] != [(1152, 1920)] * 3:
+        raise AssertionError(f"{tag} me_sad launches (keys) {r['me_keys']} "
+                             f"at {r['me_shapes']}, expected three at 11 "
+                             "keys on 1152x1920")
+    if not r["dq_launches"]:
+        raise AssertionError(f"{tag} dq_trellis was never launched")
+    print(f"{tag} 1080p RA GOP2 QP32 WPP at CTU 128 (1152 rows padded), "
+          f"VTM's CTC random-access toolset (config #4's, MTT, TT, LMCS, "
+          f"TS, JCCR, MCTF), {n} frames (I0 P2 B1): "
+          f"{sum(r['bits']) / n:.1f} bits/frame (new data), per frame "
+          f"{r['bits']}, Y-PSNR per frame "
+          f"{[round(p, 4) for p in r['psnr']]}; me_sad launches "
+          f"{r['launches']}, all at 11 keys on 1152x1920; dq_trellis "
+          f"launches {r['dq_launches']}")
+    _report(tag, r, n)
+    print(f"{tag} phase-B batches of the encode per leaf class: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(r["batch_kinds"].items())))
+    return r["launches"], r["dq_launches"], (r["bits"][0], r["psnr"][0])
+
+
+def phase_scc_ctu128(dev):
+    """Phase 11: IBC and palette in I slices (11b at 1080p), 11a's small
+    clips of IBC, palette and CTU 128 (11b runs first, while the spec
+    model's side of 11a, computed last, is still running), then CTU 128
+    at 1080p (11c, VTM's CTC random-access toolset).  Returns (me_sad
+    launches, dq_trellis launches, 11c's POC 0 (bits, Y-PSNR))."""
+    me_b, dq_b = _scc_full(dev)
+    _scc_small(dev)
+    me_c, dq_c, i0 = _ctc128_full(dev)
+    return me_b + me_c, dq_b + dq_c, i0
 
 
 def walls(dev):
@@ -2563,9 +2844,10 @@ def _phase_proc(spec, phases):
     return buf.getvalue(), outs, _SPEC_T["wait"]
 
 
-# the side processes: phases 7 and 8; phases 9 and 6; phases 3 and 10
+# the side processes: phases 7 and 8; phases 9 and 6; phases 3 and 10;
+# phase 11
 _SIDE = ((phase_mtt, phase_lmcs), (phase_bitdepth_tiles, phase_ra_tools),
-         (phase_full, phase_ctc_tools))
+         (phase_full, phase_ctc_tools), (phase_scc_ctu128,))
 
 
 def _share(shared, name, fut):
@@ -2589,7 +2871,7 @@ def main() -> int:
         print(f"[time] {tag}: {time.time() - t0:.1f} s")
         return out
 
-    # the spec model's side of phases 2, 5a, 6a, 7a, 8a, 9a and 10a is
+    # the spec model's side of phases 2, 5a, 6a, 7a, 8a, 9a, 10a and 11a is
     # host work: two worker processes run it while the card runs the
     # phases before them, and each result goes to the side processes
     # through a shared dict as soon as it is done
@@ -2597,12 +2879,13 @@ def main() -> int:
     pool = ProcessPoolExecutor(max_workers=2, mp_context=ctx)
     mgr = ctx.Manager()
     shared = mgr.dict()
-    # after phase 4 the script runs in four processes: phase 5 here,
+    # after phase 4 the script runs in five processes: phase 5 here,
     # phases 7 and 8 in a second, phases 9 and 6 in a third, phases 3 and
-    # 10 in a fourth; each phase's host is one core and its card mostly
-    # idle, and one after the other they would leave the script no margin
-    # within its limit.  Their walls and busy shares are those of a card
-    # the four share.
+    # 10 in a fourth, phase 11 in a fifth; each phase's host is one core
+    # and its card mostly idle, and one after the other they would leave
+    # the script no margin within its limit.  Their walls and busy shares
+    # are those of a card the five share (a sixth process saturated the
+    # card and left phase 9b's 28 GiB too little of its memory).
     side = [ProcessPoolExecutor(max_workers=1, mp_context=ctx)
             for _ in _SIDE]
     try:
@@ -2639,20 +2922,25 @@ def main() -> int:
     me8, dq8 = outs["phase_lmcs"]
     me9, dq9 = outs["phase_bitdepth_tiles"]
     me4, dq_launches, dq_err = outs["phase_ra_tools"]
-    me10, dq10, me_err10 = outs["phase_ctc_tools"]
+    me10, dq10, me_err10, i0_10 = outs["phase_ctc_tools"]
+    me11, dq11, i0_11 = outs["phase_scc_ctu128"]
+    print(f"[11c] POC 0 (I, QP 32) at CTU 128: {i0_11[0]} bits, Y-PSNR "
+          f"{i0_11[1]:.4f} dB; 10b's at CTU 64 (rate control leaves POC 0 "
+          f"at QP 32): {i0_10[0]} bits, {i0_10[1]:.4f} dB")
     launches += outs["phase_full"]
     me_err = max(krow["max_abs_err"], krow10["max_abs_err"], me_err10)
     kernels = [dict(name="me_sad", route="cuda",
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
-                    launches=launches + me4 + me7 + me8 + me9 + me10,
+                    launches=(launches + me4 + me7 + me8 + me9 + me10
+                              + me11),
                     equal=me_err == 0, max_abs_err=me_err, ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
                     bound_by=krow["bound_by"], library_ms=None),
                dict(name="dq_trellis", route="cuda",
                     source="vvctpu_torch/csrc/dq_trellis.cu",
                     replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
-                    launches=dq_launches + dq7 + dq8 + dq9 + dq10,
+                    launches=dq_launches + dq7 + dq8 + dq9 + dq10 + dq11,
                     equal=max(drow["max_abs_err"], dq_err, dq_err7) == 0,
                     max_abs_err=max(drow["max_abs_err"], dq_err, dq_err7),
                     ms=drow["ms"],

@@ -220,12 +220,9 @@ def test_cfg_driven_encode(tmp_path):
     assert len(_decode(outs[0])) == 2
 
 
-# the options outside the slice: a flag where the CLI has one, else a cfg
-# file's lines (RDOQ, rate control and the tools the slice lacks have no
-# flag; the cfg hands them to EncoderConfig as they are)
-_OUTSIDE = {
-    "ctu": ["--ctu", "128"], "rdoq": "RDOQ : 0", "ibc": "IBC : 1",
-    "plt": "PLT : 1"}
+# the options outside the slice: a cfg file's lines (RDOQ has no flag;
+# the cfg hands it to EncoderConfig as it is)
+_OUTSIDE = {"rdoq": "RDOQ : 0"}
 
 
 @pytest.mark.parametrize("opt", list(_OUTSIDE))
@@ -244,14 +241,16 @@ def test_options_outside_slice_raise(tmp_path, opt):
 
 
 # options that were outside the slice until 10-bit input, tiles and
-# subpictures, and then rate control, MCTF, TS and JCCR were ported: a
-# flag, or a cfg file's lines
+# subpictures, then rate control, MCTF, TS and JCCR, then CTU 128, IBC
+# and palette were ported: a flag, or a cfg file's lines
 _NOW_IN = {
     "bit-depth": ["--bit-depth", "10"], "tiles": ["--tiles", "2x1"],
     "subpics": ["--subpics", "2x1"], "cfg-tiles": "TileColumns : 2",
     "rc-bpf": "RateControl : 1\nTargetBitrate : 30000",
     "tskip": "TSM : 1", "jccr": "JointCbCr : 1",
-    "mctf": "TemporalFilter : 1"}
+    "mctf": "TemporalFilter : 1", "ctu": ["--ctu", "128"],
+    "ibc": "IBC : 1", "plt": "PLT : 1", "ibc-plt": ["--ibc", "--plt"],
+    "palettemode": "PaletteMode : 1"}
 # the reference CLI reads a cfg file's RateControl and TargetBitrate and
 # does not apply them; the port's CLI applies them (30000 bit/s at the
 # default 30 frames/s), so the reference is given the same target
@@ -260,12 +259,13 @@ _REF_EXTRA = {"rc-bpf": ["--rc-bpf", "1000"]}
 
 @pytest.mark.parametrize("opt", list(_NOW_IN))
 def test_options_now_in_slice_encode(tmp_path, opt):
-    """The CLI's --bit-depth 10, --tiles, --subpics and a cfg file's
-    TileColumns, RateControl with TargetBitrate, TSM, JointCbCr and
-    TemporalFilter encode 2 frames of 128x64 (IPPP) to the reference
-    CLI's bytes (tolerance 0), and the port decodes them with the hashes
-    verified.  Both CLIs read a cfg file's TileColumns and do not apply
-    it: its stream has no tiles."""
+    """The CLI's --bit-depth 10, --tiles, --subpics, --ctu 128, --ibc with
+    --plt and a cfg file's TileColumns, RateControl with TargetBitrate,
+    TSM, JointCbCr, TemporalFilter, IBC, PLT and PaletteMode encode 2
+    frames of 128x64 (IPPP) to the reference CLI's bytes (tolerance 0),
+    and the port decodes them with the hashes verified; each stream's SPS
+    has the option's CTU size, IBC and palette.  Both CLIs read a cfg
+    file's TileColumns and do not apply it: its stream has no tiles."""
     frames = motion_frames(2, 64, 128, seed=2)
     extra = _NOW_IN[opt]
     bd = 10 if opt == "bit-depth" else 8
@@ -288,6 +288,9 @@ def test_options_now_in_slice_encode(tmp_path, opt):
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
     assert len(_decode(outs[0])) == 2
-    _, pps_map, _ = tenc._parse(outs[0], True)
+    sps, pps_map, _ = tenc._parse(outs[0], True)
+    assert sps.log2_ctu == (7 if opt == "ctu" else 6)
+    assert sps.ibc_enabled == (opt in ("ibc", "ibc-plt"))
+    assert sps.plt_enabled == (opt in ("plt", "ibc-plt", "palettemode"))
     assert {(p.num_tile_cols, p.num_tile_rows) for p in pps_map.values()} \
         == {(2, 1) if opt == "tiles" else (1, 1)}

@@ -110,12 +110,18 @@ def _kw(sps):
                 encode=True, rdoq=True, lam_rd=lambda_rd_int(QP))
 
 
+def _tkw(sps):
+    """_kw with the CTU size, which the port's wave takes from the SPS."""
+    return dict(_kw(sps), log2_ctu=sps.log2_ctu)
+
+
 def _b_frame_inputs(poc):
     """Slots, phase-A rows and the six reference planes of B frame
     ``poc`` (references: the padded source frames 0 and 4)."""
     sps, padded, _ = _clip()
     dec, _ = _decide_b(poc, True)
-    slots, isl = trecon.make_slots_split(dec, sps.height, sps.width)
+    slots, isl = trecon.make_slots_split(dec, sps.height, sps.width,
+                                         1 << sps.log2_ctu)
     refs = [trecon.pad_refs_dev([torch.as_tensor(p) for p in padded[i]])
             for i in (0, 4)]
     return dec, slots, isl, refs[0] + refs[1]
@@ -135,7 +141,7 @@ def test_frame_wave_bi_leaves_equal_reference():
                             inter32=jisl[32], **_kw(sps))
     got = twave.frame_wave(slots, *[torch.as_tensor(p) for p in padded[2]],
                            inter_enabled=True, refs=trefs, inter=isl,
-                           **_kw(sps))
+                           **_tkw(sps))
     for i in range(6):          # recon y/cb/cr, levels y/cb/cr
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]),
                                       err_msg=f"output {i}")
@@ -144,7 +150,7 @@ def test_frame_wave_bi_leaves_equal_reference():
 @pytest.mark.parametrize("encode", [True, False])
 def test_frame_wave_batch_equals_per_frame(encode):
     sps, padded, _ = _clip()
-    kw = dict(_kw(sps), encode=encode)
+    kw = dict(_tkw(sps), encode=encode)
     frs, singles = [], []
     for poc in (1, 2, 3):
         _, slots, isl, refs = _b_frame_inputs(poc)
@@ -152,7 +158,7 @@ def test_frame_wave_batch_equals_per_frame(encode):
         if not encode:          # decode from the per-frame encode's levels
             planes = list(twave.frame_wave(slots, *planes,
                                            inter_enabled=True, refs=refs,
-                                           inter=isl, **_kw(sps))[3:6])
+                                           inter=isl, **_tkw(sps))[3:6])
         frs.append(dict(slots=slots, py=planes[0], pcb=planes[1],
                         pcr=planes[2], refs=refs, inter=isl))
         singles.append(twave.frame_wave(slots, *planes, inter_enabled=True,
@@ -230,11 +236,12 @@ def test_ra_cross_decode(case):
 
 @pytest.mark.parametrize("tool", ["ibc_enabled", "plt_enabled"])
 def test_b_stream_with_tool_outside_slice_raises(tool):
-    """A random-access stream whose SPS enables a tool outside the slice
-    raises in the port's decoder (it is checked before any slice)."""
+    """A random-access stream at CTU 128 whose SPS enables IBC or palette
+    (which the spec model refuses at CTU 128) raises in the port's
+    decoder (it is checked before any slice)."""
     frames = motion_frames(3)
     data, _, _ = tenc.encode_sequence(
-        frames, tseq.EncoderConfig(qp=32, intra_period=0, gop=2),
+        frames, tseq.EncoderConfig(qp=32, intra_period=0, gop=2, ctu=128),
         device="cpu")
     nals = tbs.read_annexb(data)
     assert any(n.nal_type == tbs.NAL_TRAIL for n in nals)

@@ -402,7 +402,7 @@ def test_batch_refuses_mixed_models():
     with pytest.raises(ValueError, match="LMCS"):
         twave.frame_wave_batch([dict(py=z, fwd_lut=lut, crs_lut=lut),
                                 dict(py=z)], frame_w=64, frame_h=64, qp=32,
-                               bd=8, encode=True)
+                               bd=8, encode=True, log2_ctu=6)
 
 
 # ---------------------------------------------------------------------------

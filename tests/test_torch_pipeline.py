@@ -67,8 +67,8 @@ def test_corrupt_stream_fails_hash():
         tenc.decode_sequence(bytes(bad), check_hash=True, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(ibc=True, intra_period=0),
-                                dict(ctu=128), dict(rdoq=False)])
+@pytest.mark.parametrize("kw", [dict(ibc=True, intra_period=0, ctu=128),
+                                dict(ctu=256), dict(rdoq=False)])
 def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)
     with pytest.raises(ValueError, match="outside"):

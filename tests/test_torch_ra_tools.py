@@ -156,8 +156,9 @@ def test_tool_config_equals_spec_model(case):
     assert _same(out, rec)
 
 
-@pytest.mark.parametrize("kw", [dict(ibc=True), dict(plt=True),
-                                dict(ctu=128), dict(bit_depth=12)])
+@pytest.mark.parametrize("kw", [dict(ibc=True, ctu=128),
+                                dict(plt=True, ctu=128), dict(ctu=32),
+                                dict(bit_depth=12)])
 def test_tools_outside_slice_still_raise(kw):
     with pytest.raises(ValueError, match="outside"):
         tenc.check_config(tseq.EncoderConfig(intra_period=0, gop=4, **kw))
@@ -192,9 +193,12 @@ def test_tools_of_this_slice_accepted(kw):
     ("log2_ctu", 5), ("bit_depth", 12),
     ("ibc_enabled", True), ("plt_enabled", True), ("log2_ctu", 7)])
 def test_stream_outside_slice_still_raises(field, value):
-    """The decoder's SPS/PPS check refuses what the slice leaves out and
-    accepts the inter and intra toolsets, SBT, DQ, ALF, the multi-type
-    tree, LMCS, transform skip and JCCR."""
+    """The decoder's SPS/PPS check refuses what the slice leaves out (CTU
+    sizes other than 64 and 128, 12 bits, and as the spec model IBC or
+    palette at CTU 128: a field of IBC or palette is set at CTU 128, CTU
+    128 with IBC) and accepts the inter and intra toolsets, SBT, DQ, ALF,
+    the multi-type tree, LMCS, transform skip, JCCR, IBC and palette at
+    CTU 64, and CTU 128."""
     from vvctpu_torch.spec import hls
     tools = dict(mts=True, lfnst=True, isp=True, mip=True, mrl=True,
                  cclm=True, mmvd=True, dmvr=True, bdof=True, bcw=True,
@@ -203,6 +207,9 @@ def test_stream_outside_slice_still_raises(field, value):
                  tskip=True, jccr=True)
     sps = tseq.EncoderConfig(intra_period=0, gop=4, **tools).make_sps(64, 64)
     tenc._check_sps(sps, hls.PPS())
+    tenc._check_sps(dataclasses.replace(sps, ibc_enabled=True,
+                                        plt_enabled=True), hls.PPS())
+    tenc._check_sps(dataclasses.replace(sps, log2_ctu=7), hls.PPS())
     pps = hls.PPS()
     if field == "tiles":
         pps = dataclasses.replace(pps, num_tile_cols=2)
@@ -210,6 +217,10 @@ def test_stream_outside_slice_still_raises(field, value):
         pps = dataclasses.replace(pps, num_tile_rows=2)
     else:
         sps = dataclasses.replace(sps, **{field: value})
+    if field in ("ibc_enabled", "plt_enabled"):
+        sps = dataclasses.replace(sps, log2_ctu=7)
+    elif (field, value) == ("log2_ctu", 7):
+        sps = dataclasses.replace(sps, ibc_enabled=True)
     with pytest.raises(ValueError, match="outside"):
         tenc._check_sps(sps, pps)
 

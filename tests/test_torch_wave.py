@@ -37,6 +37,11 @@ def _kw(sps):
                 encode=True, rdoq=True, lam_rd=lambda_rd_int(QP))
 
 
+def _tkw(sps):
+    """_kw with the CTU size, which the port's wave takes from the SPS."""
+    return dict(_kw(sps), log2_ctu=sps.log2_ctu)
+
+
 def _t(p):
     return torch.as_tensor(np.array(p, np.int32))
 
@@ -52,7 +57,8 @@ def test_i_frame_recon_and_levels():
     dec = jdecide.decide_frame(padded[0][0], QP, 8)
     slots = jrecon.make_slots(dec, sps.height, sps.width)
     tdec = state.decisions_from_numpy(dec)
-    tslots = trecon.make_slots(tdec, sps.height, sps.width)
+    tslots = trecon.make_slots(tdec, sps.height, sps.width,
+                                1 << sps.log2_ctu)
     np.testing.assert_array_equal(tslots, slots)
     sched_j = jwave.build_schedule(slots, sps.height, sps.width)
     sched_t = twave.build_schedule(tslots, sps.height, sps.width)
@@ -60,10 +66,11 @@ def test_i_frame_recon_and_levels():
     for (_, a), (_, b) in zip(sched_t, sched_j):
         np.testing.assert_array_equal(a, b)
     want = jwave.frame_wave(slots, *padded[0], **_kw(sps))
-    got = twave.frame_wave(tslots, *[_t(p) for p in padded[0]], **_kw(sps))
+    got = twave.frame_wave(tslots, *[_t(p) for p in padded[0]],
+                           **_tkw(sps))
     _compare(got, want)
     # decoding from the levels rebuilds the same recon
-    kw = dict(_kw(sps), encode=False)
+    kw = dict(_tkw(sps), encode=False)
     dec_out = twave.frame_wave(tslots, *got[3:6], **kw)
     for i in range(3):
         assert torch.equal(dec_out[i], got[i])
@@ -86,7 +93,8 @@ def test_p_frame_recon_and_levels():
     assert dec.inter8.any()
     slots, isl = jrecon.make_slots_split(dec, sps.height, sps.width)
     tslots, tisl = trecon.make_slots_split(state.decisions_from_numpy(dec),
-                                           sps.height, sps.width)
+                                           sps.height, sps.width,
+                                           1 << sps.log2_ctu)
     np.testing.assert_array_equal(tslots, slots)
     for s in (8, 16, 32):
         np.testing.assert_array_equal(tisl[s], isl[s])
@@ -96,7 +104,7 @@ def test_p_frame_recon_and_levels():
                             inter16=isl[16], inter32=isl[32], **_kw(sps))
     got = twave.frame_wave(tslots, *[_t(p) for p in padded[1]],
                            inter_enabled=True, refs=trefs, inter=tisl,
-                           **_kw(sps))
+                           **_tkw(sps))
     _compare(got, want)
     assert np.asarray(jrefs[0]).shape == (64 + 2 * REF_MARGIN,
                                           128 + 2 * REF_MARGIN)

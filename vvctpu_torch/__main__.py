@@ -1,9 +1,10 @@
 """CLI: encode raw YUV to an Annex-B VVC bitstream and decode it back with
 the PyTorch engine (all-intra, low-delay P or random access, with the
-multi-type tree, VVC's intra and inter toolsets, dependent quantization,
-transform skip, joint Cb-Cr residuals, LMCS and ALF, the MCTF prefilter
-and rate control), and the reference's stream tools (parcat, sei-remove,
-extract, merge, subpic-extract, subpic-merge, filmgrain, info).
+multi-type tree, VVC's intra and inter toolsets, intra block copy and
+palette, dependent quantization, transform skip, joint Cb-Cr residuals,
+LMCS and ALF, the MCTF prefilter and rate control, at CTU 64 or 128),
+and the reference's stream tools (parcat, sei-remove, extract, merge,
+subpic-extract, subpic-merge, filmgrain, info).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
@@ -22,17 +23,24 @@ extract, merge, subpic-extract, subpic-merge, filmgrain, info).
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq --lmcs --tskip --jccr \\
         --mctf --rc-bpf 600000 -f 3 -b ctc.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --wpp --ibc --plt --mts --lfnst --isp --mip --mrl --cclm -f 3 \\
+        -b scc.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --ctu 128 --ip 32 --gop 2 --wpp --mtt --tt --sbt --dq --lmcs \\
+        --tskip --jccr --mctf -f 3 -b ctc128.bin
     python -m vvctpu_torch encode -c encoder_randomaccess.cfg -c seq.cfg
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
     python -m vvctpu_torch info -b out.bin
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
-device (CUDA by default).  Options outside the port's slice (CTU 128;
-from a cfg file also RDOQ off, IBC and palette) are refused with the
-encoder's ValueError, and so are tiles with WPP on a picture of more
-than one CTU row.  A cfg file's RateControl with TargetBitrate and
-FrameRate sets the rate controller's bits per frame where --rc-bpf is
-not given (the reference CLI reads those keys and does not apply them).
+device (CUDA by default).  RDOQ off (from a cfg file) is outside the
+port and refused with the encoder's ValueError, and so is what the spec
+model refuses: IBC or palette at CTU 128, IBC with tiles, and tiles
+with WPP on a picture of more than one CTU row.  A cfg file's
+RateControl with TargetBitrate and FrameRate sets the rate controller's
+bits per frame where --rc-bpf is not given (the reference CLI reads
+those keys and does not apply them).
 """
 from __future__ import annotations
 
@@ -66,6 +74,8 @@ _TOOLS = {
     "tskip": "transform skip (unified tx candidate index 5)",
     "jccr": "joint Cb-Cr residual coding",
     "mctf": "motion-compensated temporal source prefilter",
+    "ibc": "intra block copy (I slices, square leaves)",
+    "plt": "palette mode (I slices, square leaves)",
 }
 _HASH = {"md5": 0, "crc": 1, "checksum": 2}
 
@@ -75,9 +85,8 @@ def _apply_cfg(args, defaults) -> dict:
     as the reference CLI does: a file's value applies where the command
     line left the option at its default (rate control's bits per frame
     from RateControl, TargetBitrate and FrameRate where --rc-bpf is 0).
-    Returns the files' options that have no flag here (RDOQ and the tools
-    outside the slice), for EncoderConfig as they are: check_config
-    refuses what the slice lacks."""
+    Returns the files' options that have no flag here (RDOQ), for
+    EncoderConfig as they are: check_config refuses RDOQ off."""
     from .io.cfg import load_layered, rc_bits_per_frame
     fc = load_layered(args.cfg)
     args.input = args.input or fc.input_file
@@ -94,7 +103,7 @@ def _apply_cfg(args, defaults) -> dict:
         args.rc_bpf = rc_bits_per_frame(fc)
     # a file's TileColumns and TileRows are read and not applied, as in
     # the reference CLI: only --tiles sets the tile grid
-    return dict(rdoq=fc.rdoq, ibc=fc.ibc, plt=fc.plt)
+    return dict(rdoq=fc.rdoq)
 
 
 def _enc(args) -> int:

@@ -25,8 +25,9 @@ from ..device import const
 from ..kernels import intra_pred, mc
 from ..kernels import me_sad as kme
 from ..spec.codec import FrameDecisions, isp_parts
-from ..spec.decide import (MODE_BITS, TT_GEOM, _bl, lambda_satd_fp,
-                           mtt_assemble_b, mtt_assemble_i, mtt_assemble_p)
+from ..spec.decide import (MODE_BITS, TT_GEOM, _bl, _fill_ibc, _fill_plt,
+                           lambda_satd_fp, mtt_assemble_b, mtt_assemble_i,
+                           mtt_assemble_p, plt_competition)
 from ..spec.inter import AFF_DELTAS, AFF_MIN_SIZE, BCW_DEFAULT, mv_bits_q
 from . import me as tme
 
@@ -265,11 +266,13 @@ def _pad_buf(orig_y, device):
 def decide_frame_device(orig_y: np.ndarray, qp: int, bd: int = 8, *,
                         device, mip: bool = False, mrl: bool = False,
                         isp: bool = False, mtt: bool = False,
-                        tt: bool = False):
+                        tt: bool = False, ibc: bool = False,
+                        plt: bool = False):
     """Launch the I-frame decision passes; returns a handle for
-    decide_frame_assemble (the square sizes' results still on the device;
-    with ``mtt`` the rect grids, with ``tt`` the TT stripes too, on the
-    host)."""
+    decide_frame_assemble (the square sizes' results and, with ``ibc``,
+    the block-vector search's still on the device; with ``mtt`` the rect
+    grids, with ``tt`` the TT stripes too, on the host).  ``plt`` has
+    decide_frame_assemble run the palette competition on the host."""
     h, w = orig_y.shape
     lam = lambda_satd_fp(qp)
     B = est.decision_bits(2, qp)
@@ -277,8 +280,16 @@ def decide_frame_device(orig_y: np.ndarray, qp: int, bd: int = 8, *,
     res = {s: size_pass(jbuf, lam, s=s, frame_w=w, frame_h=h, bd=bd, B=B,
                         mip=mip, mrl=mrl, isp=isp)
            for s in (8, 16, 32)}
+    ipass = None
+    if ibc:
+        with record_function("ibc_pass"):
+            ipass = tme.ibc_pass(
+                torch.as_tensor(np.ascontiguousarray(orig_y, np.int32),
+                                device=device), lam, frame_w=w, frame_h=h,
+                ibc_fp=int(B.ibc_fp))
     rects = _rect_grids_intra(jbuf, lam, w, h, bd, tt, B) if mtt else None
-    return dict(res=res, rects=rects, h=h, w=w, lam=lam, B=B)
+    return dict(res=res, ipass=ipass, rects=rects, h=h, w=w, lam=lam, B=B,
+                plt=plt, bd=bd, orig_y=orig_y)
 
 
 def _split_and_fill(dec, B, lam, cost8, cost16, cost32):
@@ -315,33 +326,68 @@ def _pick(a32, a16, a8, use16, use8):
     return np.where(use8, a8, v)
 
 
+def _ibc_competition(got, ipass):
+    """IBC against the intra winner per square size, strict-less: where
+    IBC wins its cost replaces the winner's and the winner's MRL and ISP
+    are cleared (twin of the reference's assembly).  ``got[s]`` = [cost
+    int64, mode, MRL, ISP] host arrays, changed in place.  Returns
+    {s: (IBC use mask, block vectors)}."""
+    ibc_data = {}
+    for s in (8, 16, 32):
+        bc, _, bk, bi = got[s]
+        ic = ipass[s][0].cpu().numpy().astype(np.int64)
+        use = ic < bc
+        bc[:] = np.where(use, ic, bc)
+        bk[:] = np.where(use, 0, bk)
+        bi[:] = np.where(use, 0, bi)
+        ibc_data[s] = (use, ipass[s][1].cpu().numpy())
+    return ibc_data
+
+
 def decide_frame_assemble(hd) -> FrameDecisions:
-    """Fetch the device results and run the host bottom-up assembly."""
+    """Fetch the device results and run the host bottom-up assembly: IBC
+    and then palette (the copied plt_competition, host NumPy) compete
+    with the intra winners per square size before the partition."""
     res, h, w, lam, B = hd["res"], hd["h"], hd["w"], hd["lam"], hd["B"]
-    got = {s: [t.cpu().numpy() for t in res[s]] for s in res}
+    got = {s: [np.array(t.cpu().numpy()) for t in res[s]] for s in res}
+    for s in got:
+        got[s][0] = got[s][0].astype(np.int64)
+    ibc_data = None
+    if hd["ipass"] is not None:
+        ibc_data = _ibc_competition(got, hd["ipass"])
+    plt_use = None
+    if hd["plt"]:
+        with record_function("palette_size_pass"):
+            plt_use = plt_competition(
+                hd["orig_y"], lam, hd["bd"], ibc_data,
+                {s: (got[s][0], got[s][2], got[s][3]) for s in got})
     dec = FrameDecisions.empty(h, w)
     if hd["rects"] is not None:
-        sizes = {s: (got[s][0].astype(np.int64), *got[s][1:]) for s in got}
-        mtt_assemble_i(dec, sizes, hd["rects"], lam, B=B)
+        mtt_assemble_i(dec, got, hd["rects"], lam, ibc_data=ibc_data,
+                       plt_use=plt_use, B=B)
         return dec
     use16, use8 = _split_and_fill(dec, B, lam,
-                                  *(got[s][0].astype(np.int64)
-                                    for s in (8, 16, 32)))
+                                  *(got[s][0] for s in (8, 16, 32)))
     planes = [_pick(got[32][i], got[16][i], got[8][i], use16, use8)
               for i in (1, 2, 3)]
     dec.modes8[:] = planes[0]
     dec.mrl8[:] = planes[1].astype(np.uint8)
     dec.isp8[:] = planes[2].astype(np.uint8)
+    if ibc_data is not None:
+        _fill_ibc(dec, ibc_data, use16, use8)
+    if plt_use is not None:
+        _fill_plt(dec, plt_use, use16, use8)
     return dec
 
 
 def decide_frame(orig_y: np.ndarray, qp: int, bd: int = 8, *, device,
                  mip: bool = False, mrl: bool = False, isp: bool = False,
-                 mtt: bool = False, tt: bool = False) -> FrameDecisions:
+                 mtt: bool = False, tt: bool = False, ibc: bool = False,
+                 plt: bool = False) -> FrameDecisions:
     """Decisions for a padded luma plane (host assembly)."""
     return decide_frame_assemble(decide_frame_device(
         orig_y, qp, bd, device=device, mip=mip, mrl=mrl, isp=isp, mtt=mtt,
-        tt=tt))
+        tt=tt, ibc=ibc, plt=plt))
 
 
 def ciip_pass(buf, refp0, refp1, kind, mv0, mv1, bwidx, *, s: int,

@@ -317,3 +317,96 @@ def bi_cost_pass(orig, mv0, mv1, lam, *, s: int, frame_w: int,
     wi = torch.argmin(cv, dim=1)
     cost = torch.gather(cv, 1, wi[:, None])[:, 0]
     return cost.reshape(nby, nbx), wi.to(torch.int32).reshape(nby, nbx)
+
+
+# IBC: dx offsets per batch of the block-vector search (each dy row's 129
+# offsets in three batches; at 1088x1920 one batch's int16 differences
+# take 180 MB)
+_IBC_DX = 43
+
+
+def _ibc_offsets():
+    """[(dy, [(dx, bits), ...]), ...]: the IBC window's offsets in
+    row-major (dy, dx) order, dx in batches of _IBC_DX, with each
+    offset's decision-time rate."""
+    from ..spec.decide import IBC_WIN
+    from ..spec.inter import mv_bits_q
+    out = []
+    for dy in range(-IBC_WIN, 1):
+        row = [(dx, mv_bits_q(dx, dy)) for dx in range(-IBC_WIN, IBC_WIN + 1)]
+        out += [(dy, row[i:i + _IBC_DX]) for i in range(0, len(row), _IBC_DX)]
+    return out
+
+
+def _wrap32(v: int) -> int:
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def ibc_pass(orig, lam: int, *, frame_w: int, frame_h: int, ibc_fp: int):
+    """Full-search IBC block vectors for the square sizes 8, 16 and 32
+    (twin of the reference's ibc_pass): SAD per 8x8 granule of the
+    current picture's original luma against every offset of the window
+    (dx in [-IBC_WIN, IBC_WIN], dy in [-IBC_WIN, 0], edge-padded), summed
+    per block; cost (SAD << 8) + lam * bits + ((ibc_fp * lam) >> 8) in
+    wrapping int32 where the source block is legal (inside the frame and
+    above the block's CTU row, or in that row left of its CTU), I32MAX
+    elsewhere; the first minimum in offset order (argmin inside a batch,
+    strict-less across batches).  Each batch's references are a strided
+    view of the padded plane, one int16 difference tensor per batch.
+
+    orig: (H, W) int32 luma.  Returns {s: (cost (nby, nbx) int32,
+    bv (nby, nbx, 2) int32 [dx, dy])}."""
+    from ..spec.decide import IBC_WIN
+    h, w = frame_h, frame_w
+    dev = orig.device
+    o16 = orig.to(torch.int16)
+    iy = (torch.arange(h + 2 * IBC_WIN, device=dev) - IBC_WIN).clamp(0, h - 1)
+    ix = (torch.arange(w + 2 * IBC_WIN, device=dev) - IBC_WIN).clamp(0, w - 1)
+    refp = o16[iy[:, None], ix[None, :]].contiguous()
+    wp = refp.shape[1]
+    lam_t = torch.tensor(_wrap32(lam), dtype=torch.int32, device=dev)
+    flag = _wrap32(_wrap32(ibc_fp * lam) >> 8)
+    geo, state = {}, {}
+    for s in (8, 16, 32):
+        ny, nx = h // s, w // s
+        ys = torch.arange(ny, device=dev, dtype=torch.int32)[:, None] * s
+        xs = torch.arange(nx, device=dev, dtype=torch.int32)[None, :] * s
+        geo[s] = (xs, ys, ys & ~63, xs & ~63)
+        state[s] = [torch.full((ny, nx), I32MAX, dtype=torch.int32,
+                               device=dev),
+                    torch.zeros((ny, nx), dtype=torch.int32, device=dev),
+                    torch.zeros((ny, nx), dtype=torch.int32, device=dev)]
+    for dy, row in _ibc_offsets():
+        n = len(row)
+        dx0 = row[0][0]
+        win = refp.as_strided((n, h, w), (1, wp, 1),
+                              (IBC_WIN + dy) * wp + IBC_WIN + dx0)
+        sad = (o16[None] - win).abs_().view(n, h // 8, 8, w // 8, 8).sum(
+            (2, 4), dtype=torch.int32)
+        dxs = torch.tensor([d for d, _ in row], dtype=torch.int32,
+                           device=dev)[:, None, None]
+        bits = torch.tensor([b for _, b in row], dtype=torch.int32,
+                            device=dev)[:, None, None]
+        rate = lam_t * bits + flag
+        for s in (8, 16, 32):
+            if s > 8:
+                f = s // 8
+                sad_s = sad.view(n, h // s, f, w // s, f).sum(
+                    (2, 4), dtype=torch.int32)
+            else:
+                sad_s = sad
+            xs, ys, cy0, cx0 = geo[s]
+            sx, sy = xs[None] + dxs, ys + dy
+            legal = ((sx >= 0) & (sy >= 0) & (sx + s <= w) & (sy + s <= h)
+                     & ((sy + s <= cy0) | ((sy >= cy0) & (sy + s <= cy0 + 64)
+                                           & (sx + s <= cx0))))
+            cb = torch.where(legal, (sad_s << 8) + rate, I32MAX)
+            bi = torch.argmin(cb, dim=0)          # first minimum in order
+            c = torch.gather(cb, 0, bi[None])[0]
+            st = state[s]
+            better = c < st[0]
+            st[0] = torch.where(better, c, st[0])
+            st[1] = torch.where(better, dxs[:, 0, 0][bi], st[1])
+            st[2] = torch.where(better, dy, st[2])
+    return {s: (st[0], torch.stack([st[1], st[2]], -1))
+            for s, st in state.items()}

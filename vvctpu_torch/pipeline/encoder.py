@@ -2,7 +2,7 @@
 
 Twin of vvctpu/pipeline/encoder.py for this slice: all-intra, low-delay
 P and random access (hierarchical B, any ``gop`` and ``intra_period``),
-8- or 10-bit samples, CTU 64, uniform tile grids (every tile of every
+8- or 10-bit samples, CTU 64 or 128, uniform tile grids (every tile of every
 frame of a group one member of the frame-batched wave, its motion
 compensation reading the frame's full reference at the tile's offset;
 decisions and loop filters over the whole frame, as in the reference)
@@ -11,7 +11,11 @@ layers, as the reference's dist/subpic.py does), the default toolset
 plus the multi-type tree (BT and TT splits) and VVC's intra toolset
 (MTS, LFNST, ISP, MIP, MRL, CCLM) in every slice type and its inter
 toolset (BCW, CIIP, GPM, affine with PROF, DMVR, BDOF, MMVD, AMVR,
-SMVD, SBT; DMVR and BDOF in BI-symmetric pictures only), dependent
+SMVD, SBT; DMVR and BDOF in BI-symmetric pictures only), the
+screen-content leaves of I slices at CTU 64 (intra block copy, its
+block vectors from a full search on the device, coding/me.py ibc_pass;
+palette, decided and derived on the host by the copied spec/palette.py,
+its reconstruction scattered by the wave), dependent
 quantization, transform skip, joint Cb-Cr residuals, LMCS (one model per
 frame, derived on the host from the source luma and signalled in its
 slice header) and ALF with CC-ALF (parameters derived on the host,
@@ -47,36 +51,43 @@ from ..spec import alf as salf
 from ..spec import codec as scodec
 from ..spec import hls
 from ..spec import lmcs as slmcs
+from ..spec import palette as splt
 from ..spec import sequence as sseq
 from ..spec.transform import lambda_rd_int
 from . import entropy, recon, wave
 
-# EncoderConfig / SPS tool flags this slice leaves off
-_OFF_TOOLS = ("ibc", "plt")
-_SPS_OFF = ("ibc", "plt")
 # frames per frame-batched wave
 _GROUP = 8
 
 
 def check_config(cfg: sseq.EncoderConfig) -> None:
-    """Raise ValueError for a configuration outside this slice."""
-    bad = [t for t in _OFF_TOOLS if getattr(cfg, t)]
+    """Raise ValueError for a configuration outside the port: RDOQ off or
+    12 bits, and what the spec model refuses (CTUs other than 64 and 128,
+    IBC or palette at CTU 128, IBC with tiles)."""
+    bad = []
     if not cfg.rdoq:
         bad.append("rdoq=False")
-    if cfg.ctu != 64:
-        bad.append(f"ctu={cfg.ctu}")
     if cfg.bit_depth not in (8, 10):
         bad.append(f"bit_depth={cfg.bit_depth}")
+    if cfg.ctu not in (64, 128):
+        bad.append(f"ctu={cfg.ctu}")
+    elif cfg.ctu == 128 and (cfg.ibc or cfg.plt):
+        bad.append("IBC or palette at CTU 128")
+    if cfg.ibc and cfg.tile_cols * cfg.tile_rows > 1:
+        bad.append("IBC with tiles")
     if bad:
-        raise ValueError("outside the PyTorch port's slice (CTU 64, 8 or "
-                         "10 bits, RDOQ on; no IBC or palette): "
+        raise ValueError("outside the PyTorch port's slice (8 or 10 bits, "
+                         "RDOQ on; as in the spec model, CTU 64 or 128, IBC "
+                         "and palette at CTU 64, no IBC with tiles): "
                          + ", ".join(bad))
 
 
 def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
-    bad = [t for t in _SPS_OFF if getattr(sps, f"{t}_enabled")]
-    if sps.log2_ctu != 6 or sps.bit_depth not in (8, 10):
+    bad = []
+    if sps.log2_ctu not in (6, 7) or sps.bit_depth not in (8, 10):
         bad.append("ctu/bit depth")
+    if sps.log2_ctu == 7 and (sps.ibc_enabled or sps.plt_enabled):
+        bad.append("IBC or palette at CTU 128")
     if bad:
         raise ValueError("stream outside the PyTorch port's slice: "
                          + ", ".join(bad))
@@ -85,10 +96,13 @@ def _check_sps(sps: hls.SPS, pps: hls.PPS) -> None:
 
 def _check_tiles(sps: hls.SPS, pps: hls.PPS) -> None:
     """Tiles and WPP are exclusive where the picture has more than one CTU
-    row, as in the spec model."""
-    if (pps.num_tile_cols * pps.num_tile_rows > 1 and pps.entropy_sync
-            and sps.height >> sps.log2_ctu > 1):
+    row, and tiles and IBC always, as in the spec model."""
+    tiles = pps.num_tile_cols * pps.num_tile_rows > 1
+    if tiles and pps.entropy_sync and sps.height >> sps.log2_ctu > 1:
         raise ValueError("tiles + WPP combination not supported")
+    if tiles and sps.ibc_enabled:
+        raise ValueError("tiles + IBC combination not supported (IBC "
+                         "reference area is not tile-constrained)")
 
 
 def _wave_tools(sps: hls.SPS, sym: bool) -> dict:
@@ -107,7 +121,9 @@ def _decide_tools(sps: hls.SPS, stype) -> dict:
     """The decision passes' tool flags of a slice type from the SPS."""
     kw = dict(mip=sps.mip_enabled, mrl=sps.mrl_enabled, isp=sps.isp_enabled,
               mtt=sps.mtt_enabled, tt=sps.tt_enabled)
-    if stype != hls.SLICE_I:
+    if stype == hls.SLICE_I:
+        kw.update(ibc=sps.ibc_enabled, plt=sps.plt_enabled)
+    else:
         kw.update(ciip=sps.ciip_enabled, affine=sps.affine_enabled)
     if stype == hls.SLICE_B:
         kw.update(bcw=sps.bcw_enabled, gpm=sps.gpm_enabled)
@@ -121,19 +137,22 @@ def _lmcs_luts(cw, bd: int):
 
 
 def _wave_frame(sps, pps, dec, py, pcb, pcr, dpb, ref_pocs, device,
-                luts=None):
+                luts=None, plt=None):
     """frame_wave_batch members of one frame, one per tile (the whole
     frame without tiles): each with its rect, slot tables of its part of
     the decisions, its part of the planes on the device and, for inter
     frames, the phase-A rows (per square size and per rect shape of the
     multi-type tree), the frame's padded device reference planes (three
     per list) and the tile's offset in them; with LMCS (``luts`` from
-    _lmcs_luts) the frame's forward and CRS LUTs."""
+    _lmcs_luts) the frame's forward and CRS LUTs; with palette leaves
+    (``plt``, the frame's three palette planes) the member's part of
+    them."""
     def up(p):
         return torch.as_tensor(np.ascontiguousarray(p, np.int32),
                                device=device)
 
     planes = (up(py), up(pcb), up(pcr))
+    pl = None if plt is None else [up(p) for p in plt]
     lut = {} if luts is None else dict(fwd_lut=up(luts[0]),
                                        crs_lut=up(luts[2]))
     rects = subpic_rects(sps.width, sps.height, pps.num_tile_cols,
@@ -147,6 +166,10 @@ def _wave_frame(sps, pps, dec, py, pcb, pcr, dpb, ref_pocs, device,
         fr = dict(rect=rect, py=planes[0][y0:y1, x0:x1],
                   pcb=planes[1][y0 // 2:y1 // 2, x0 // 2:x1 // 2],
                   pcr=planes[2][y0 // 2:y1 // 2, x0 // 2:x1 // 2], **lut)
+        if pl is not None:
+            fr["plt"] = (pl[0][y0:y1, x0:x1],
+                         pl[1][y0 // 2:y1 // 2, x0 // 2:x1 // 2],
+                         pl[2][y0 // 2:y1 // 2, x0 // 2:x1 // 2])
         if ref_pocs:
             fr["slots"], fr["inter"] = recon.make_slots_split(
                 tdec, y1 - y0, x1 - x0, ctu)
@@ -369,8 +392,17 @@ def _encode_group(frames, cfg, sps, pps, grp, qpd, tid, dpb, mot, nals,
                 luts = _lmcs_luts(cw, cfg.bit_depth)
                 py = luts[0][padded[0]]
         models.append((cw, None if luts is None else luts[1]))
+        pplanes = None
+        if sps.plt_enabled and stype == hls.SLICE_I:
+            # each palette leaf's entries and index map from the luma the
+            # wave codes (mapped under LMCS), as its recon planes
+            with _stage("palette", stage_times):
+                splt.derive_plt_data(dec, py, padded[1], padded[2],
+                                     cfg.bit_depth)
+                pplanes = splt.build_planes(dec.plt_data or {}, sps.height,
+                                            sps.width)
         frs.append(_wave_frame(sps, pps, dec, py, padded[1], padded[2],
-                               dpb, ref_pocs, dev, luts))
+                               dpb, ref_pocs, dev, luts, pplanes))
     with _stage("wave", stage_times, dev):
         outs = _wave(frs, sps, qp=qp, bd=cfg.bit_depth, encode=True,
                      rdoq=cfg.rdoq, lam_rd=lambda_rd_int(qp),
@@ -615,10 +647,15 @@ def _decode_group(grp, sps, pps_map, dpb, device, stage_times):
     qp = pps_map[sh.pps_id].init_qp + sh.qp_delta
     luts = [_lmcs_luts(e["sh"].lmcs_cw, sps.bit_depth)
             if e["sh"].lmcs_cw else None for e in grp]
+    intra = sh.slice_type == hls.SLICE_I
     frs = [_wave_frame(sps, pps_map[e["sh"].pps_id], e["dec"],
                        *e["levels"], dpb,
-                       e["sh"].ref_pocs if sh.slice_type != hls.SLICE_I
-                       else (), device, lt) for e, lt in zip(grp, luts)]
+                       () if intra else e["sh"].ref_pocs, device, lt,
+                       splt.build_planes(e["dec"].plt_data, sps.height,
+                                         sps.width)
+                       if intra and sps.plt_enabled and e["dec"].plt_data
+                       else None)
+           for e, lt in zip(grp, luts)]
     with _stage("wave", stage_times, device):
         outs = _wave(frs, sps, qp=qp, bd=sps.bit_depth, encode=False,
                      **_wave_tools(sps, scodec.bi_sym(sh)))

@@ -443,7 +443,9 @@ def _slab_strides(frame_h: int):
 
 
 def make_slots(dec: FrameDecisions, frame_h: int, frame_w: int,
-               ctu: int = 64) -> np.ndarray:
+               ctu: int) -> np.ndarray:
+    """(N, 16) slot table of a frame's leaves in coding order (CTUs of
+    side ``ctu``, the SPS's, in raster order, z-order inside each)."""
     op, xs, ys, modes, mv0, mv1, dirs = planmod.leaf_plan(dec, frame_h,
                                                           frame_w, ctu)
     mts = dec.mts8[ys // 8, xs // 8].astype(np.int32) \
@@ -464,7 +466,7 @@ def make_slots(dec: FrameDecisions, frame_h: int, frame_w: int,
 
 
 def make_slots_split(dec: FrameDecisions, frame_h: int, frame_w: int,
-                     ctu: int = 64):
+                     ctu: int):
     """(scan_slots, {8/16/32: inter_slot_arrays}) — inter leaves pulled out
     of the sequential scan (op -> skip) into fixed-capacity per-size batches
     for the phase-A pass.  Invalid rows use x = y = 2^20 (positive

@@ -9,11 +9,13 @@ One engine: an eager loop over the schedule, with the intra toolset
 (MIP, MRL, ISP, MTS, LFNST, CCLM), CIIP and the rectangular leaves of the
 multi-type tree on the phase-B leaves, VVC's inter toolset (BCW, GPM,
 DMVR, BDOF, affine, SBT) and the rectangular inter leaves in phase A,
-dependent quantization and LMCS in every leaf class.  It runs F mutually
-independent frames at once (one temporal layer's B frames): the buffers
-carry a leading frame axis, every row its frame index (which also picks
-its frame's LMCS model), and the frames' schedules merge by (level,
-class), so one launch sequence covers a level of every frame.
+the IBC and palette leaves of I frames, dependent quantization and LMCS
+in every leaf class (LMCS's chroma scaling in every class but IBC and
+palette).  It runs F mutually independent frames at once (one temporal
+layer's B frames): the buffers carry a leading frame axis, every row its
+frame index (which also picks its frame's LMCS model), and the frames'
+schedules merge by (level, class), so one launch sequence covers a level
+of every frame.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ _MAX_BATCH = 128
 # one eager launch sequence; the host-bound wave's cost is their number)
 batches = 0
 # None, or a dict to which each frame_wave_batch adds its phase-B batches
-# per leaf class (intra, isp, ciip, rect)
+# per leaf class (intra, isp, ciip, rect, ibc, plt)
 batch_kinds = None
 
 
@@ -518,16 +520,57 @@ def _rect_batch(carry, rows, qp: int, lam_rd: int, *, w: int, h: int,
               (rec_c, lev_c, None, None), encode)
 
 
+def _ibc_batch(carry, rows, qp: int, lam_rd: int, *, s: int, frame_w: int,
+               frame_h: int, bd: int, encode: bool, rdoq: bool,
+               dq: bool = False):
+    """One dependency level's IBC s-leaves (twin of the reference's
+    _ibc_batch): each leaf's luma and chroma copied from its own frame's
+    reconstructed (pre-filter) buffers at its block vector (slot columns
+    4 and 5, integer pels, the source clamped to the frame; chroma at the
+    halved position), then coded and reconstructed with DCT-II residuals
+    (RDOQ or the trellis), without the intra tools, the tool planes or
+    LMCS's chroma scaling.  The leveller puts every leaf after the
+    leaves of its source region."""
+    x, y, f = rows[:, 1], rows[:, 2], rows[:, 16]
+    sx = (x + rows[:, 4]).clamp(0, frame_w - s)
+    sy = (y + rows[:, 5]).clamp(0, frame_h - s)
+    cs = s // 2
+    pred_y = _gather(carry["by"], f, sx + 1, sy + 1, s, s)
+    x2, y2, f2 = _chroma_rows(carry, f, x, y)
+    sx2, sy2, _ = _chroma_rows(carry, f, sx, sy)
+    pred_c = _gather(carry["bc"], f2, sx2 + 1, sy2 + 1, cs, cs)
+    rec_y, lev_y = _comp_local(carry["sy"], pred_y, f, x, y, s, s, qp, bd,
+                               encode, rdoq, lam_rd, dq)
+    rec_c, lev_c = _comp_local(carry["sc"], pred_c, f2, x2, y2, cs, cs, qp,
+                               bd, encode, rdoq, lam_rd, dq)
+    _put_leaf(carry, f, x, y, s, s, rec_y, lev_y,
+              (rec_c, lev_c, None, None), encode)
+
+
+def _plt_batch(carry, rows, *, s: int):
+    """One dependency level's palette s-leaves (twin of the reference's
+    _plt_batch): each leaf's precomputed palette reconstruction (the
+    frame's palette planes in the carry) scattered into the recon
+    buffers; its levels stay zero."""
+    x, y, f = rows[:, 1], rows[:, 2], rows[:, 16]
+    x2, y2, f2 = _chroma_rows(carry, f, x, y)
+    cs = s // 2
+    _scatter(carry["by"], _gather(carry["plty"], f, x, y, s, s), f, x, y,
+             s, s, 1)
+    _scatter(carry["bc"], _gather(carry["pltc"], f2, x2, y2, cs, cs), f2,
+             x2, y2, cs, cs, 1)
+
+
 # ---------------------------------------------------------------------------
 # frame loop
 # ---------------------------------------------------------------------------
 
 
 def frame_wave(slots, planes_y, planes_cb, planes_cr, *, frame_w: int,
-               frame_h: int, qp: int, bd: int, encode: bool,
-               log2_ctu: int = 6, inter_enabled: bool = False, refs=None,
-               inter=None, rdoq: bool = False, lam_rd: int = 0,
-               fwd_lut=None, crs_lut=None, **tools):
+               frame_h: int, qp: int, bd: int, encode: bool, log2_ctu: int,
+               inter_enabled: bool = False, refs=None, inter=None,
+               rdoq: bool = False, lam_rd: int = 0, fwd_lut=None,
+               crs_lut=None, **tools):
     """Reconstruct one frame: phase A, then the phase-B intra leaves level
     by level (frame_wave_batch over this one frame).
 
@@ -562,7 +605,7 @@ def _frame_rows(frames_in, key):
 
 
 def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
-                     bd: int, encode: bool, log2_ctu: int = 6,
+                     bd: int, encode: bool, log2_ctu: int,
                      rdoq: bool = False, lam_rd: int = 0, mts: bool = False,
                      lfnst: bool = False, cclm: bool = False,
                      mip: bool = False, ciip: bool = False,
@@ -574,7 +617,8 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     in one pass (twin of vvctpu.pipeline.wave.frame_wave_batch).
 
     frames_in: list of dicts {slots, py, pcb, pcr [, refs, inter [,
-    ref_idx, rox, roy]] [, fwd_lut, crs_lut]} as frame_wave takes them;
+    ref_idx, rox, roy]] [, fwd_lut, crs_lut] [, plt]} as frame_wave takes
+    them; log2_ctu: the SPS's CTU size;
     the planes are int32 tensors on the device all frames share.  A
     member may be one tile of a frame: its planes and slots are the
     tile's, frame_w and frame_h its size (every member of a call has the
@@ -595,7 +639,9 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
     callers gate them); sbt: SBT in phase A; dq: dependent quantization
     in every leaf class.  The rectangular (BT and TT) leaves of the multi-type tree run
     in phase A (inter, the rect arrays of make_slots_split in ``inter``)
-    and phase B (intra) wherever the slot tables hold them.  Returns a
+    and phase B (intra) wherever the slot tables hold them, and so do
+    the IBC and palette leaves of I frames (a member with palette leaves
+    carries its (y, cb, cr) palette planes in ``plt``).  Returns a
     list of per-frame 11-tuples, each equal to frame_wave's for that
     frame alone."""
     F = len(frames_in)
@@ -633,6 +679,18 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
         # LMCS: each frame's own model, (F, 2^bd) LUTs that every leaf
         # row indexes with its frame index
         carry["fwd"], carry["crs"] = stack("fwd_lut"), stack("crs_lut")
+    if any(fr.get("plt") is not None for fr in frames_in):
+        # palette: each frame's precomputed recon planes (zero for a frame
+        # without palette leaves), chroma stacked as the source's
+        def plt(i, h, w):
+            return torch.stack([
+                torch.zeros((h, w), dtype=torch.int32, device=dev)
+                if fr.get("plt") is None
+                else torch.as_tensor(fr["plt"][i], device=dev).to(torch.int32)
+                for fr in frames_in])
+
+        carry["plty"] = plt(0, frame_h, frame_w)
+        carry["pltc"] = torch.cat([plt(1, h2, w2), plt(2, h2, w2)])
     refs = None
     if frames_in[0].get("refs") is not None:
         # one stack slot per reference index the members give (a P
@@ -689,6 +747,12 @@ def frame_wave_batch(frames_in, *, frame_w: int, frame_h: int, qp: int,
             _ciip_batch(carry, rt, refs, qp, lam_rd, s=w, **kw)
         elif kind == "rect":
             _rect_batch(carry, rt, qp, lam_rd, w=w, h=h, **kw)
+        elif kind == "ibc":
+            _ibc_batch(carry, rt, qp, lam_rd, s=w, frame_w=frame_w,
+                       frame_h=frame_h, bd=bd, encode=encode, rdoq=rdoq,
+                       dq=dq)
+        elif kind == "plt":
+            _plt_batch(carry, rt, s=w)
         else:
             raise ValueError(f"leaf class {kind!r} is not in this slice")
 
