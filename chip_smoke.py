@@ -148,13 +148,31 @@ Phases, in order; any failure exits non-zero:
    launches at 11 keys on 1152x1920, the trellis launched, its POC 0
    printed beside 10b's.
 
+12. multi-device (vvctpu_torch/dist), four ranks, child processes on the
+   one card joined under gloo: (12a) test_shard.py's three configs (the
+   third takes the unsharded wave: 2 tiles on a 4-rank tile axis), a 2x2
+   LMCS clip and test_rdoq.py's and test_isp.py's RDOQ-off configs
+   encoded and decoded over a (1, 4) mesh must equal the spec model's
+   bitstream and decisions, hashes verified, with a syntax trace equal
+   to the spec model's; __graft_entry__'s dry-run shape over a (2, 2)
+   mesh (a closed-GOP segment per gop row, the tiles over its row) must
+   equal the unsharded encode_gop_parallel; the CLI's --distributed over
+   two processes must give encode_gop_parallel's stream after parcat;
+   (12b) bench config #5 (9b's clip) over a (1, 4) mesh, tile t of every
+   frame on rank t: its bytes equal to 9b's one-rank stream of the same
+   run, hashes verified, recon == decoded, 3 me_sad launches, with the
+   walls, the controller's stages, each rank's wave seconds and batches,
+   the exchange's seconds and bytes per group and each rank's peak
+   memory.
+
 After phase 4 the script runs in five processes, each on a CUDA context
 of its own: phase 5 in the first, phases 7 and 8 in a second, phases 9
-and 6 in a third, phases 3 and 10 in a fourth, phase 11 (11b, 11a, then
-11c) in a fifth.  So the walls and card busy shares of phases 3 and 5 to
-11 are measured with the others running (the card's busy share is the
-device's); the lines of phases 7 and 8, then 9 and 6, then 3 and 10,
-then 11 print after phase 5's.
+and 12 in a third (12 with four rank processes of its own, in the room
+9b has returned), phases 10 and 6 in a fourth, phase 11 (11b, 11a, then
+11c) and phase 3 in a fifth.  So the walls and card busy shares of
+phases 3 and 5 to 12 are measured with the others running (the card's
+busy share is the device's); the lines of phases 7 and 8, then 9 and 12,
+then 10 and 6, then 11 and 3 print after phase 5's.
 
 The last lines are a JSON object per kernel, the card's name and power
 limit, and the result object.
@@ -253,6 +271,63 @@ def synth_frames10(n, h, w, seed=0):
             0, 1023).astype(np.int32)
         frames.append([y, cb, cr])
     return frames
+
+
+def shard_frames(n, h, w, seed=3):
+    """test_shard.py's frames."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(n):
+        y = (80 + 60 * np.sin((xx + 4 * t) / 9.0)
+             + 40 * np.cos((yy - 2 * t) / 7.0)
+             + rng.integers(-8, 8, (h, w))).clip(0, 255).astype(np.int32)
+        cb = (128 + 20 * np.sin((xx[::2, ::2] + t) / 5.0)).clip(
+            0, 255).astype(np.int32)
+        cr = (128 - 15 * np.cos((yy[::2, ::2] + t) / 6.0)).clip(
+            0, 255).astype(np.int32)
+        frames.append([y, cb, cr])
+    return frames
+
+
+def isp_frames(n, h, w, seed=0):
+    """test_isp.py's frames."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for t in range(n):
+        yy, xx = np.mgrid[0:h, 0:w]
+        y = (100 + 70 * np.sin((xx + 4 * t) / 9.0)
+             + 50 * np.cos(yy / 7.0) + (xx // 16) * 3
+             + rng.integers(-8, 8, (h, w))).clip(0, 255).astype(np.int32)
+        cb = (128 + 20 * np.sin(xx[::2, ::2] / 6.0)).astype(np.int32)
+        cr = (128 - 18 * np.cos(yy[::2, ::2] / 5.0)).astype(np.int32)
+        frames.append([y, cb, cr])
+    return frames
+
+
+def dryrun_frames(n, h, w):
+    """__graft_entry__.py's frames for its multi-device dry run."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(n):
+        y = (90 + 60 * np.sin((xx + 6 * t) / 9.0)
+             + 45 * np.cos((yy - 4 * t) / 7.0)
+             + rng.integers(-8, 8, (h, w))).clip(0, 255).astype(np.int32)
+        cb = (128 + 20 * np.sin((xx[::2, ::2] + 2 * t) / 5.0)).clip(
+            0, 255).astype(np.int32)
+        cr = (128 - 16 * np.cos((yy[::2, ::2] + t) / 6.0)).clip(
+            0, 255).astype(np.int32)
+        frames.append([y, cb, cr])
+    return frames
+
+
+def c5_config():
+    """Bench config #5 as phases 9b and 12b run it: 4K 10-bit random
+    access GOP2 QP32 with a 2x2 tile grid."""
+    from vvctpu_torch.spec import sequence as tseq
+    return tseq.EncoderConfig(qp=32, bit_depth=10, intra_period=32, gop=2,
+                              tile_cols=2, tile_rows=2)
 
 
 def to10(frames, seed=0):
@@ -738,6 +813,29 @@ def _spec_clips():
                      dict(qp=32, ctu=128, mtt=True, tt=True, isp=True)),
         "c128_ctc": (ctc_frames(), dict(qp=27, intra_period=0, gop=2,
                                         ctu=128, **CTC_SMALL)),
+        # phase 12: test_shard.py's three configs, test_tiles.py:55's 2x2
+        # LMCS config at 128 rows (at 64 its grid is one row of 2 tiles),
+        # test_rdoq.py:70's and test_isp.py:33's RDOQ-off configs
+        "shard_inter": (shard_frames(3, 128, 256),
+                        dict(qp=32, intra_period=4, gop=2, tile_cols=4,
+                             tile_rows=1)),
+        "shard_22": (shard_frames(2, 128, 128, seed=9),
+                     dict(qp=37, intra_period=1, tile_cols=2, tile_rows=2)),
+        "shard_fallback": (shard_frames(1, 64, 128, seed=5),
+                           dict(qp=32, intra_period=1, tile_cols=2)),
+        "shard_lmcs": (motion_frames(3, 128, 128, seed=83),
+                       dict(qp=32, tile_cols=2, tile_rows=2, intra_period=0,
+                            gop=2, mmvd=True, ciip=True, sbt=True,
+                            lmcs=True)),
+        "shard_lmcs_dq": (motion_frames(3, 128, 128, seed=83),
+                          dict(qp=32, tile_cols=2, tile_rows=2,
+                               intra_period=0, gop=2, mmvd=True, ciip=True,
+                               sbt=True, lmcs=True, dq=True)),
+        "rdoq_off": (motion_frames(2, 64, 96, seed=61),
+                     dict(qp=32, intra_period=1, rdoq=False)),
+        "isp_rdoq_off": (isp_frames(1, 64, 128, seed=3),
+                         dict(qp=30, isp=True, deblock=False, sao=False,
+                              rdoq=False)),
     }
 
 
@@ -772,7 +870,8 @@ _SPEC = {}
 _SPEC_SHARED = None
 # seconds this process's phases waited for the spec model's results
 _SPEC_T = {"wait": 0.0}
-# runs a later phase of the same process compares with (phase 7's 7b)
+# runs a later phase of the same process compares with (phase 7's 7b,
+# phase 9's 9b)
 _RUNS = {}
 
 
@@ -932,7 +1031,7 @@ def _run_full(dev, frames, cfg, decisions_out=None):
         if not np.isfinite(p) or p < 25.0:
             raise AssertionError(f"implausible Y-PSNR {p}")
     r.update(bits=bits, busy_enc=busy_enc, busy_dec=busy_dec,
-             alf_ctus=_alf_ctus(data), qps=tenc.slice_qps(data))
+             alf_ctus=_alf_ctus(data), qps=tenc.slice_qps(data), data=data)
     return r
 
 
@@ -2300,9 +2399,9 @@ def phase_bitdepth_tiles(dev):
           "a tile's offset, deblocking, SAO, ALF)")
     # 9b: bench config #5 on one card
     n = 3
-    cfg = tseq.EncoderConfig(qp=32, bit_depth=10, intra_period=32, gop=2,
-                             tile_cols=2, tile_rows=2)
-    r = _run_full(dev, synth_frames10(n, 2160, 3840, seed=5), cfg)
+    r = _run_full(dev, synth_frames10(n, 2160, 3840, seed=5), c5_config())
+    # phase 12b, next in this process, holds its four-rank stream to this
+    _RUNS["9b"] = _c5_summary(r)
     tag = "[9b]"
     if r["me_shapes"] != [(2176, 3840)] * 3:
         raise AssertionError(f"{tag} me_sad launches at {r['me_shapes']}, "
@@ -2795,6 +2894,399 @@ def phase_scc_ctu128(dev):
     return me_b + me_c, dq_b + dq_c, i0
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device (vvctpu_torch/dist) over four ranks on the card
+# ---------------------------------------------------------------------------
+
+# 12a's clips over a (1, 4) mesh: test_shard.py's three configs (the third
+# has 2 tiles on the 4-rank tile axis and takes the unsharded wave), the
+# 2x2 LMCS clip without and with DQ (the trellis on every rank), the
+# RDOQ-off configs (one tile: unsharded as well)
+DIST_CLIPS = ("shard_inter", "shard_22", "shard_fallback", "shard_lmcs",
+              "shard_lmcs_dq", "rdoq_off", "isp_rdoq_off")
+DIST_SHARDED = ("shard_inter", "shard_22", "shard_lmcs", "shard_lmcs_dq")
+# the clip 12a encodes with the syntax trace on
+DIST_TRACED = "shard_22"
+# free device bytes 12b's controller waits for, and its longest wait
+DIST_ROOM = 32 * 2 ** 30
+DIST_WAIT_S = 420
+
+
+def _dist_rank(small, dry, big: bool):
+    """One of phase 12's four ranks, a process on the card joined to the
+    others under gloo: (12a) each clip of ``small`` ((name, frames,
+    EncoderConfig keywords)) encoded and decoded (hashes verified) over a
+    (1, 4) mesh; ``dry`` ((frames, keywords)) encoded with
+    encode_gop_parallel over a (2, 2) mesh and decoded over row 0's tile
+    axis (``dry`` None: not run); then, when ``big``, (12b) bench config
+    #5 over the (1, 4) mesh, encoded and decoded with the hashes verified.
+    Rank 0 returns {name: results}; rank 2, the other (2, 2) row's
+    controller, its gathered stream and the me_sad and dq_trellis
+    launches of its row (its own and its server's); the others None.
+    Each result counts the launches of the controller and, per rank, of
+    the ranks that served it."""
+    from vvctpu_torch.dist import gop as tgop
+    from vvctpu_torch.dist import mesh as dmesh
+    from vvctpu_torch.dist import shard
+    from vvctpu_torch.kernels import dq as kdq
+    from vvctpu_torch.kernels import me_sad as kme
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import sequence as tseq
+    dev = torch.device("cuda")
+    m14 = dmesh.make_mesh(4, gop=1, device_type="cuda")
+    m22 = dmesh.make_mesh(4, gop=2, device_type="cuda")
+    ctl = shard.is_controller(m14)
+    out = {}
+    for name, frames, kw in small:
+        with shard.use_mesh(m14):
+            if not ctl:
+                shard.serve(m14)
+                continue
+            calls = len(shard.stats["calls"])
+            me0, dq0 = kme.launches, kdq.launches
+            ranks0 = _rank_launches(0)
+            decs = []
+
+            def enc():
+                return tenc.encode_sequence(
+                    frames, tseq.EncoderConfig(**kw), device=dev,
+                    decisions_out=decs)
+            text, (data, recons, _) = (
+                _traced(enc) if name == DIST_TRACED else (None, enc()))
+            dec, _ = tenc.decode_sequence(data, check_hash=True, device=dev)
+            out[name] = dict(data=data, decs=decs, recons=recons, dec=dec,
+                             trace=text,
+                             waves=len(shard.stats["calls"]) - calls,
+                             me=kme.launches - me0, dq=kdq.launches - dq0,
+                             ranks=_rank_launches(0, ranks0))
+    gathered = None
+    if dry is not None:
+        frames, kw = dry
+        rank = dmesh.dist.get_rank()
+        me0, dq0, ranks0 = kme.launches, kdq.launches, _rank_launches(rank)
+        res = tgop.encode_gop_parallel(frames, tseq.EncoderConfig(**kw),
+                                       mesh=m22, device=dev)
+        if m22.get_coordinate()[0] == 0:
+            dec = shard.run(m22["tile"], lambda d: tenc.decode_sequence(
+                d, check_hash=True, device=dev)[0], res and res[0])
+        if res is not None:
+            mine = _rank_launches(rank, ranks0)
+            launches = (kme.launches - me0
+                        + sum(m for m, _ in mine.values()),
+                        kdq.launches - dq0
+                        + sum(q for _, q in mine.values()))
+            if ctl:
+                out["dry"] = dict(data=res[0], recons=res[1], dec=dec,
+                                  launches=launches)
+            else:
+                gathered = (res[0], launches)
+    if big:
+        _dist_big(m14, ctl, out)
+    return out if ctl else gathered
+
+
+def _rank_launches(ctl, since=None):
+    """{rank: (me_sad, dq_trellis launches)} of the ranks that served this
+    controller's sharded waves (their reports in shard.stats), less
+    ``since``, an earlier result."""
+    from vvctpu_torch.dist import shard
+    since = since or {}
+    return {r: (s["me_sad"] - since.get(r, (0, 0))[0],
+                s["dq_trellis"] - since.get(r, (0, 0))[1])
+            for r, s in shard.stats["ranks"].items() if r != ctl}
+
+
+def _traced(fn):
+    """(the syntax trace that fn() writes, fn's result)."""
+    import os
+    import tempfile
+
+    from vvctpu_torch.core import trace
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "syntax.trc")
+        trace.open_trace(path)
+        try:
+            res = fn()
+        finally:
+            trace.close_trace()
+        with open(path) as f:
+            return f.read(), res
+
+
+def _dist_big(m14, ctl, out):
+    """12b on one of _dist_rank's ranks: the controller encodes and
+    decodes bench config #5 over ``m14`` into out["12b"], the others
+    serve its waves."""
+    from vvctpu_torch.dist import shard
+    from vvctpu_torch.kernels import dq as kdq
+    from vvctpu_torch.kernels import me_sad as kme
+    from vvctpu_torch.pipeline import encoder as tenc
+    dev = torch.device("cuda")
+    shard.reset_stats()
+    with shard.use_mesh(m14):
+        if not ctl:
+            shard.serve(m14)
+            return
+        frames = synth_frames10(3, 2160, 3840, seed=5)
+        r = dict(enc_t={}, dec_t={}, enc_l={}, dec_l={})
+        # the controller's decisions on the whole 4K frame take 9b's 28
+        # GiB: wait (at most DIST_WAIT_S) until the card has that room
+        # beside the other phases' processes
+        t0 = time.time()
+        while (torch.cuda.mem_get_info()[0] < DIST_ROOM
+               and time.time() - t0 < DIST_WAIT_S):
+            time.sleep(1.0)
+        r["wait"] = time.time() - t0
+        r["free"] = torch.cuda.mem_get_info()[0]
+        kme.launches = kdq.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        data, recons, bits = tenc.encode_sequence(
+            frames, c5_config(), device=dev, stage_times=r["enc_t"],
+            layer_times=r["enc_l"])
+        torch.cuda.synchronize()
+        r["t_enc"] = time.time() - t0
+        r["enc_calls"] = len(shard.stats["calls"])
+        r["me"], r["dq"] = kme.launches, kdq.launches
+        t0 = time.time()
+        dec, _ = tenc.decode_sequence(data, check_hash=True, device=dev,
+                                      stage_times=r["dec_t"],
+                                      layer_times=r["dec_l"])
+        torch.cuda.synchronize()
+        r["t_dec"] = time.time() - t0
+        r["same"] = _same_planes(recons, dec)
+        r["peak"] = torch.cuda.max_memory_allocated()
+        r.update(data=data, bits=bits)
+    # the workers' peaks come with their stop, at the block's end
+    r["stats"] = dict(shard.stats)
+    r["ranks"] = _rank_launches(0)
+    out["12b"] = r
+
+
+def _dist_cli(dev, frames, kw):
+    """The CLI's --distributed over two processes on the card (a file://
+    rendezvous): each encodes its closed-GOP segment to a .seg file; their
+    parcat must equal encode_gop_parallel(segments=2).  Returns the
+    stream's bytes."""
+    import os
+    import shutil
+    import tempfile
+
+    from vvctpu_torch.dist import gop as tgop
+    from vvctpu_torch.io import yuv
+    from vvctpu_torch.io.parcat import parcat
+    from vvctpu_torch.spec import sequence as tseq
+    tmp = tempfile.mkdtemp(prefix="vvctpu_cli_")
+    try:
+        src, bit = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "o.bin")
+        yuv.write_yuv(src, frames)
+        h, w = frames[0][0].shape
+        args = [sys.executable, "-m", "vvctpu_torch", "encode", "-i", src,
+                "--wdt", str(w), "--hgt", str(h), "-q", str(kw["qp"]),
+                "--ip", str(kw["intra_period"]), "--gop", str(kw["gop"]),
+                "-b", bit, "--distributed", "--coordinator",
+                "file://" + os.path.join(tmp, "rendezvous"),
+                "--num-processes", "2"]
+        root = os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen(args + ["--process-id", str(r)], cwd=root,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError("[12a] --distributed CLI failed:\n"
+                                 + "\n".join(logs))
+        segs = []
+        for r in range(2):
+            with open(f"{bit}.seg{r}", "rb") as f:
+                segs.append(f.read())
+        got = parcat(segs)
+    finally:
+        shutil.rmtree(tmp)
+    want, _, _ = tgop.encode_gop_parallel(frames, tseq.EncoderConfig(**kw),
+                                          segments=2, device=dev)
+    if got != want:
+        raise AssertionError("[12a] --distributed over 2 processes: parcat "
+                             "of the segments != encode_gop_parallel's")
+    return got
+
+
+def _rank_waves(calls):
+    """Each rank's own wave seconds and phase-B batches summed over
+    shard.stats calls: ({rank: seconds}, {rank: batches})."""
+    waves, nb = {}, {}
+    for c in calls:
+        for rank, sec in [(0, c["own_wave_s"]), *c["rank_wave_s"].items()]:
+            waves[rank] = waves.get(rank, 0.0) + sec
+            nb[rank] = nb.get(rank, 0) + c["rank_batches"][rank]
+    return waves, nb
+
+
+def _report_12b(r, one, smi):
+    """12b's lines: walls, the controller's stages, each rank's wave and
+    batches, the exchange per group, peak memory, against 9b's one-rank
+    run of the same stream (``one``)."""
+    n = len(r["bits"])
+    st = r["stats"]
+    print(f"[12b] {smi}: bench config #5 over a (1, 4) mesh, four ranks "
+          "on the card (gloo), tile t of every frame on rank t: "
+          f"{sum(r['bits']) / n:.1f} bits/frame, bytes equal to 9b's "
+          "one-rank stream of this run; hashes verified, recon == decoded; "
+          f"me_sad launches {r['me']} (the controller's decisions), "
+          f"dq_trellis {r['dq']}; ranks 1-3 (me_sad, dq_trellis): "
+          + ", ".join(f"rank {k} {v}" for k, v in sorted(r["ranks"].items())))
+    print(f"[12b] waited {r['wait']:.1f} s for {DIST_ROOM / 2 ** 30:.0f} "
+          f"GiB of the card free ({r['free'] / 2 ** 30:.1f} GiB free at the "
+          "start)")
+    print(f"[12b] {smi}: encode {r['t_enc']:.2f} s ({n / r['t_enc']:.4f} "
+          f"fps), decode {r['t_dec']:.2f} s ({n / r['t_dec']:.4f} fps); "
+          f"9b one rank in its own process: encode {one['t_enc']:.2f} s, "
+          f"decode {one['t_dec']:.2f} s")
+    print(_stages_line("[12b] controller encode", r["enc_t"], r["t_enc"]))
+    print(_stages_line("[12b] controller decode", r["dec_t"], r["t_dec"]))
+    calls = st["calls"]
+    enc, dec = calls[:r["enc_calls"]], calls[r["enc_calls"]:]
+    for what, cs in (("encode", enc), ("decode", dec)):
+        waves, nb = _rank_waves(cs)
+        print(f"[12b] {smi}: {what} wave per rank (its own frame_wave_batch "
+              "calls, synchronised; phase-B batches): " + ", ".join(
+                  f"rank {k} {v:.2f} s, {nb[k]}"
+                  for k, v in sorted(waves.items()))
+              + f"; 9b's one-rank {what} wave "
+              f"{one['wave' if what == 'encode' else 'dec_wave']:.2f} s"
+              + (f", {one['batches']} batches" if what == "encode" else ""))
+        for i, c in enumerate(cs):
+            slow = max([c["own_wave_s"], *c["rank_wave_s"].values()])
+            ex = c["wall_s"] - slow
+            print(f"[12b]   {what} group {i} ({c['frames']} frames): wall "
+                  f"{c['wall_s']:.3f} s, slowest rank's wave {slow:.3f} s, "
+                  f"exchange {ex:.3f} s ({100 * ex / c['wall_s']:.1f} %), "
+                  f"{c['bytes_out'] / 2 ** 20:.1f} MiB out, "
+                  f"{c['bytes_in'] / 2 ** 20:.1f} MiB in")
+    print("[12b] peak device memory per rank (encode and decode; "
+          "torch.cuda.max_memory_allocated of each process): " + ", ".join(
+              f"rank {k} "
+              f"{(r['peak'] if k == 0 else v['peak_bytes']) / 2 ** 30:.2f} GiB"
+              for k, v in sorted(st["ranks"].items())))
+
+
+def phase_dist(dev, big: bool = True):
+    """Phase 12: multi-device over four ranks, child processes on the one
+    card joined under gloo: 12a small clips against the spec model, the
+    (2, 2) mesh against the unsharded encode_gop_parallel, the CLI's
+    --distributed over two processes, an encode trace against the spec
+    model's; then (``big``) 12b, bench config #5 over a (1, 4) mesh,
+    against 9b's one-rank stream of the same run (phase 9 before it in
+    this process; run alone, phase 12 encodes 9b's clip on one rank after
+    the ranks).  Returns the kernels' launches on the path (me_sad,
+    dq_trellis)."""
+    import os
+
+    from vvctpu_torch.dist import gop as tgop
+    from vvctpu_torch.dist import mesh as dmesh
+    from vvctpu_torch.spec import sequence as tseq
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    clips = _spec_clips()
+    small = [(name, *clips[name]) for name in DIST_CLIPS]
+    dry = (dryrun_frames(4, 64, 128),
+           dict(qp=34, intra_period=4, gop=2, tile_cols=2))
+    # expandable segments: less of the card held in the ranks' cached,
+    # unused blocks, beside the other phases' processes
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.time()
+    res = dmesh.run_ranks(_dist_rank, 4, args=(small, dry, big),
+                          timeout_s=1000)
+    t_ranks = time.time() - t0
+    out, other = res[0], res[2]
+    me = dq = 0
+    for name, frames, kw in small:
+        r = out[name]
+        sdata, sdecs, sout = _spec(name)
+        tag = f"[12a] {name}"
+        if r["data"] != sdata:
+            raise AssertionError(f"{tag}: four-rank bitstream != spec "
+                                 "model's")
+        _decisions_equal(tag, r["decs"], sdecs)
+        if not _same_planes(r["recons"], r["dec"], sout):
+            raise AssertionError(f"{tag}: recon/decoder mismatch")
+        sharded = name in DIST_SHARDED
+        if bool(r["waves"]) != sharded:
+            raise AssertionError(f"{tag}: {r['waves']} sharded waves")
+        if kw.get("dq") and not (
+                sorted(r["ranks"]) == [1, 2, 3]
+                and all(q > 0 for _, q in r["ranks"].values())):
+            raise AssertionError(f"{tag}: dq_trellis launches per serving "
+                                 f"rank (me_sad, dq_trellis) {r['ranks']}")
+        me = me + r["me"] + sum(m for m, _ in r["ranks"].values())
+        dq = dq + r["dq"] + sum(q for _, q in r["ranks"].values())
+        print(f"[12a] {name} {kw}: {len(r['data'])} bytes and decisions "
+              "equal to the spec model over four ranks "
+              + (f"({r['waves']} sharded waves, encode and decode)"
+                 if sharded else "(one tile per frame on a 4-rank tile axis:"
+                 " the unsharded wave, as in the reference)")
+              + "; hashes verified; launches (me_sad, dq_trellis): "
+              f"controller ({r['me']}, {r['dq']}), " + ", ".join(
+                  f"rank {k} {v}" for k, v in sorted(r["ranks"].items())))
+    frames, kw = clips[DIST_TRACED]
+    stext, _ = _traced(lambda: tseq.encode_sequence(
+        frames, tseq.EncoderConfig(**kw)))
+    if not stext or out[DIST_TRACED]["trace"] != stext:
+        raise AssertionError("[12a] the sharded encode's syntax trace != "
+                             "the spec model's")
+    print(f"[12a] syntax trace of {DIST_TRACED}'s sharded encode equal to "
+          f"the spec model's ({len(stext.splitlines())} lines)")
+    d = out["dry"]
+    me += d["launches"][0] + other[1][0]
+    dq += d["launches"][1] + other[1][1]
+    base, base_rec, _ = tgop.encode_gop_parallel(
+        dry[0], tseq.EncoderConfig(**dry[1]), segments=2, device=dev)
+    if not (d["data"] == other[0] == base and _same_planes(
+            d["recons"], base_rec) and _same_planes(d["dec"], base_rec)):
+        raise AssertionError("[12a] (2, 2) mesh: the gathered stream != "
+                             "the unsharded encode_gop_parallel's")
+    print(f"[12a] (2, 2) mesh, __graft_entry__'s dry-run shape (4 frames "
+          f"64x128 GOP2, 2 tiles): {len(base)} bytes gathered over the gop "
+          "axis on both rows' controllers, equal to the unsharded "
+          "encode_gop_parallel; row 0's sharded decode verified hashes")
+    cli = _dist_cli(dev, motion_frames(4, 64, 64, seed=90),
+                    dict(qp=32, intra_period=0, gop=2))
+    print(f"[12a] --distributed CLI over 2 processes: parcat of the .seg "
+          f"files ({len(cli)} bytes) equals encode_gop_parallel(segments=2)")
+    print(f"[12a] {smi}: the four ranks' run (12a and 12b, their start "
+          f"included) {t_ranks:.1f} s")
+    if not big:
+        return me, dq
+    r = out["12b"]
+    one = _RUNS.get("9b") or _c5_summary(_run_full(
+        dev, synth_frames10(3, 2160, 3840, seed=5), c5_config()))
+    if r["data"] != one["data"]:
+        raise AssertionError("[12b] four-rank stream != 9b's one-rank "
+                             "stream")
+    if not r["same"] or r["me"] != 3:
+        raise AssertionError(f"[12b] recon == decoded {r['same']}, me_sad "
+                             f"launches {r['me']} (3 expected)")
+    _report_12b(r, one, smi)
+    return (me + r["me"] + sum(m for m, _ in r["ranks"].values()),
+            dq + r["dq"] + sum(q for _, q in r["ranks"].values()))
+
+
+def _c5_summary(r):
+    """What 12b compares with of 9b's one-rank run (_run_full's)."""
+    return dict(data=r["data"], wave=r["enc_t"]["wave"],
+                dec_wave=r["dec_t"]["wave"], batches=r["batches"],
+                t_enc=r["t_enc"], t_dec=r["t_dec"])
+
+
 def walls(dev):
     """Encode and decode walls of phase 4's and phase 6b's configurations
     (1080p RA GOP16, 17 frames; bench config #4 whole, 5 frames) with the
@@ -2818,6 +3310,61 @@ def walls(dev):
               f"{r['t_enc']:.2f} s, decode {r['t_dec']:.2f} s, "
               f"{sum(r['bits']) / n:.1f} bits/frame; "
               + _stages_line("encode", r["enc_t"], r["t_enc"]))
+
+
+def dist_walls(dev):
+    """12b's walls against 9b's one-rank run of the same stream, with the
+    card to each in turn: one rank (in this process), four ranks (phase
+    12's ranks, spawned), four ranks, one rank; each process warmed first
+    on 12a's shard_inter clip, and every run's bytes held equal.  Prints
+    one line per run.  Not run by main (about 11 min):
+
+        python3 -c "import torch, chip_smoke;
+            chip_smoke.dist_walls(torch.device('cuda'))"
+    """
+    import os
+
+    from vvctpu_torch.dist import mesh as dmesh
+    from vvctpu_torch.pipeline import encoder as tenc
+    from vvctpu_torch.spec import sequence as tseq
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    wframes, wkw = _spec_clips()["shard_inter"]
+    data, _, _ = tenc.encode_sequence(wframes, tseq.EncoderConfig(**wkw),
+                                      device=dev)
+    tenc.decode_sequence(data, check_hash=True, device=dev)
+    # the ranks' allocator as in phase 12 (this process's is set up now)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    frames = synth_frames10(3, 2160, 3840, seed=5)
+    first = None
+    for i, n in enumerate((1, 4, 4, 1), start=1):
+        if n == 1:
+            r = _c5_summary(_run_full(dev, frames, c5_config()))
+            line = (f"one rank: encode {r['t_enc']:.2f} s, decode "
+                    f"{r['t_dec']:.2f} s, wave stage {r['wave']:.2f} / "
+                    f"{r['dec_wave']:.2f} s, {r['batches']} batches")
+        else:
+            r = dmesh.run_ranks(_dist_rank, 4, args=(
+                [("shard_inter", wframes, wkw)], None, True),
+                timeout_s=1000)[0]["12b"]
+            calls = r["stats"]["calls"]
+            waves, nb = _rank_waves(calls[:r["enc_calls"]])
+            dwaves, _ = _rank_waves(calls[r["enc_calls"]:])
+            line = (f"four ranks: encode {r['t_enc']:.2f} s, decode "
+                    f"{r['t_dec']:.2f} s, wave stage (the sharded calls' "
+                    f"walls) {r['enc_t']['wave']:.2f} / "
+                    f"{r['dec_t']['wave']:.2f} s; each rank's own wave "
+                    "(encode / decode, batches): " + ", ".join(
+                        f"rank {k} {waves[k]:.2f} / {dwaves[k]:.2f} s, "
+                        f"{nb[k]}" for k in sorted(waves))
+                    + f"; waited {r['wait']:.1f} s for room")
+        if first is None:
+            first = r["data"]
+        elif r["data"] != first:
+            raise AssertionError(f"[dist_walls] run {i}'s stream != run 1's")
+        print(f"[dist_walls] {smi}: run {i}, {line}", flush=True)
 
 
 def _phase_proc(spec, phases):
@@ -2844,10 +3391,12 @@ def _phase_proc(spec, phases):
     return buf.getvalue(), outs, _SPEC_T["wait"]
 
 
-# the side processes: phases 7 and 8; phases 9 and 6; phases 3 and 10;
-# phase 11
-_SIDE = ((phase_mtt, phase_lmcs), (phase_bitdepth_tiles, phase_ra_tools),
-         (phase_full, phase_ctc_tools), (phase_scc_ctu128,))
+# the side processes: phases 7 and 8; phases 9 and 12 (12's four ranks in
+# the room 9b has returned: beside the four other processes, a fifth
+# phase's process ran out of the card's memory); phases 10 and 6; phases
+# 11 and 3
+_SIDE = ((phase_mtt, phase_lmcs), (phase_bitdepth_tiles, phase_dist),
+         (phase_ctc_tools, phase_ra_tools), (phase_scc_ctu128, phase_full))
 
 
 def _share(shared, name, fut):
@@ -2880,12 +3429,13 @@ def main() -> int:
     mgr = ctx.Manager()
     shared = mgr.dict()
     # after phase 4 the script runs in five processes: phase 5 here,
-    # phases 7 and 8 in a second, phases 9 and 6 in a third, phases 3 and
-    # 10 in a fourth, phase 11 in a fifth; each phase's host is one core
-    # and its card mostly idle, and one after the other they would leave
-    # the script no margin within its limit.  Their walls and busy shares
-    # are those of a card the five share (a sixth process saturated the
-    # card and left phase 9b's 28 GiB too little of its memory).
+    # phases 7 and 8 in a second, phases 9 and 12 in a third (12's four
+    # ranks after 9b), phases 10 and 6 in a fourth, phases 11 and 3 in a
+    # fifth; each phase's host is one core and its card mostly idle, and
+    # one after the other they would leave the script no margin within its
+    # limit.  Their walls and busy shares are those of a card the five
+    # share (a sixth process saturated the card and left phase 9b's 28 GiB
+    # too little of its memory).
     side = [ProcessPoolExecutor(max_workers=1, mp_context=ctx)
             for _ in _SIDE]
     try:
@@ -2924,6 +3474,7 @@ def main() -> int:
     me4, dq_launches, dq_err = outs["phase_ra_tools"]
     me10, dq10, me_err10, i0_10 = outs["phase_ctc_tools"]
     me11, dq11, i0_11 = outs["phase_scc_ctu128"]
+    me12, dq12 = outs["phase_dist"]
     print(f"[11c] POC 0 (I, QP 32) at CTU 128: {i0_11[0]} bits, Y-PSNR "
           f"{i0_11[1]:.4f} dB; 10b's at CTU 64 (rate control leaves POC 0 "
           f"at QP 32): {i0_10[0]} bits, {i0_10[1]:.4f} dB")
@@ -2933,14 +3484,15 @@ def main() -> int:
                     source="vvctpu_torch/csrc/me_sad.cu",
                     replaces="vvctpu/kernels/me_pallas.py:248",
                     launches=(launches + me4 + me7 + me8 + me9 + me10
-                              + me11),
+                              + me11 + me12),
                     equal=me_err == 0, max_abs_err=me_err, ms=krow["ms"],
                     plain_ms=krow["plain_ms"], bound_ms=krow["bound_ms"],
                     bound_by=krow["bound_by"], library_ms=None),
                dict(name="dq_trellis", route="cuda",
                     source="vvctpu_torch/csrc/dq_trellis.cu",
                     replaces="vvctpu/kernels/transform.py:232 quantize_dq_j",
-                    launches=dq_launches + dq7 + dq8 + dq9 + dq10 + dq11,
+                    launches=(dq_launches + dq7 + dq8 + dq9 + dq10 + dq11
+                              + dq12),
                     equal=max(drow["max_abs_err"], dq_err, dq_err7) == 0,
                     max_abs_err=max(drow["max_abs_err"], dq_err, dq_err7),
                     ms=drow["ms"],

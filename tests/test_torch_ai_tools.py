@@ -124,13 +124,13 @@ def test_decodes_spec_ippp_stream_with_isp():
 @pytest.mark.parametrize("tool", TOOLS)
 def test_tools_outside_all_intra_raise(tool):
     """Outside all-intra the intra tools are in the slice: beside an
-    option that is not (RDOQ off; IBC was until it was ported, JCCR
-    until it was), only that option is refused."""
+    option that is not (a CTU of 256; RDOQ off was until it was ported,
+    IBC and JCCR until they were), only that option is refused."""
     frames = synth(1, 64, 64)
     with pytest.raises(ValueError, match="outside") as err:
         tenc.encode_sequence(frames, tseq.EncoderConfig(
-            intra_period=0, rdoq=False, **{tool: True}), device="cpu")
-    assert str(err.value).endswith(": rdoq=False")
+            intra_period=0, ctu=256, **{tool: True}), device="cpu")
+    assert str(err.value).endswith(": ctu=256")
 
 
 def test_cli_intra_tools(tmp_path, capsys):

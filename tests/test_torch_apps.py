@@ -220,9 +220,10 @@ def test_cfg_driven_encode(tmp_path):
     assert len(_decode(outs[0])) == 2
 
 
-# the options outside the slice: a cfg file's lines (RDOQ has no flag;
-# the cfg hands it to EncoderConfig as it is)
-_OUTSIDE = {"rdoq": "RDOQ : 0"}
+# the option outside the port: a checkpoint with the torch engine (the
+# spec model's encoder resumes from one; the reference CLI ignores it with
+# its JAX engine)
+_OUTSIDE = {"checkpoint": ["--checkpoint", "ck.npz"]}
 
 
 @pytest.mark.parametrize("opt", list(_OUTSIDE))
@@ -242,8 +243,12 @@ def test_options_outside_slice_raise(tmp_path, opt):
 
 # options that were outside the slice until 10-bit input, tiles and
 # subpictures, then rate control, MCTF, TS and JCCR, then CTU 128, IBC
-# and palette were ported: a flag, or a cfg file's lines
+# and palette, then RDOQ off, the reference's --distributed (one process:
+# a plain encode) and --gop-parallel were ported: a flag, or a cfg file's
+# lines
 _NOW_IN = {
+    "rdoq": "RDOQ : 0", "no-rdoq": ["--no-rdoq"],
+    "distributed": ["--distributed"], "gop-parallel": ["--gop-parallel", "2"],
     "bit-depth": ["--bit-depth", "10"], "tiles": ["--tiles", "2x1"],
     "subpics": ["--subpics", "2x1"], "cfg-tiles": "TileColumns : 2",
     "rc-bpf": "RateControl : 1\nTargetBitrate : 30000",
@@ -260,7 +265,8 @@ _REF_EXTRA = {"rc-bpf": ["--rc-bpf", "1000"]}
 @pytest.mark.parametrize("opt", list(_NOW_IN))
 def test_options_now_in_slice_encode(tmp_path, opt):
     """The CLI's --bit-depth 10, --tiles, --subpics, --ctu 128, --ibc with
-    --plt and a cfg file's TileColumns, RateControl with TargetBitrate,
+    --plt, --no-rdoq, --distributed on one process, --gop-parallel 2 and
+    a cfg file's RDOQ : 0, TileColumns, RateControl with TargetBitrate,
     TSM, JointCbCr, TemporalFilter, IBC, PLT and PaletteMode encode 2
     frames of 128x64 (IPPP) to the reference CLI's bytes (tolerance 0),
     and the port decodes them with the hashes verified; each stream's SPS
@@ -294,3 +300,79 @@ def test_options_now_in_slice_encode(tmp_path, opt):
     assert sps.plt_enabled == (opt in ("plt", "ibc-plt", "palettemode"))
     assert {(p.num_tile_cols, p.num_tile_rows) for p in pps_map.values()} \
         == {(2, 1) if opt == "tiles" else (1, 1)}
+
+
+def test_trace_files_equal_spec_model(tmp_path):
+    """--trace-file on encode and decode (test_codec_roundtrip.py's
+    tracing check): the port's encode and decode traces are equal, and
+    equal to the reference CLI's spec-model encode trace."""
+    from test_codec_roundtrip import synth_frame
+
+    from vvctpu.core import trace as ref_trace
+    src = tmp_path / "in.yuv"
+    yuv.write_yuv(str(src), [synth_frame(64, 64, seed=13)])
+    bit, rbit = tmp_path / "p.bin", tmp_path / "r.bin"
+    tr = {k: tmp_path / f"{k}.trc" for k in ("enc", "dec", "ref")}
+    args = ["-i", str(src), "--wdt", "64", "--hgt", "64", "-q", "32"]
+    assert tcli.main(["encode", *args, "-b", str(bit), "--trace-file",
+                      str(tr["enc"]), "--device", "cpu"]) == 0
+    assert tcli.main(["decode", "-b", str(bit), "-o",
+                      str(tmp_path / "d.yuv"), "--trace-file",
+                      str(tr["dec"]), "--device", "cpu"]) == 0
+    try:
+        assert ref_main(["encode", *args, "-b", str(rbit), "--trace-file",
+                         str(tr["ref"])]) == 0
+    finally:
+        ref_trace.close_trace()
+    assert bit.read_bytes() == rbit.read_bytes()
+    text = tr["enc"].read_text()
+    assert text.startswith("D_") and text == tr["dec"].read_text() \
+        == tr["ref"].read_text()
+
+
+def test_bitstats_equal_reference_cli(tmp_path, capsys):
+    """decode --bitstats (on test_apps.py's test_bitstats_accounting
+    clip, an I and a P frame) prints the reference CLI's bin tally of the
+    same stream; the port's decode is the recon."""
+    rng = np.random.default_rng(7)
+    frames = [[rng.integers(0, 255, (64, 64)).astype(np.int32),
+               np.full((32, 32), 128, np.int32),
+               np.full((32, 32), 128, np.int32)] for _ in range(2)]
+    src = tmp_path / "in.yuv"
+    yuv.write_yuv(str(src), frames)
+    bit, rec = tmp_path / "p.bin", tmp_path / "rec.yuv"
+    assert tcli.main(["encode", "-i", str(src), "--wdt", "64", "--hgt",
+                      "64", "-q", "32", "--ip", "0", "-b", str(bit), "-o",
+                      str(rec), "--device", "cpu"]) == 0
+    capsys.readouterr()
+    tallies = []
+    for tag, fn in (("port", tcli.main), ("ref", ref_main)):
+        out = tmp_path / f"{tag}.yuv"
+        assert fn(["decode", "-b", str(bit), "-o", str(out), "--bitstats"]
+                  + (["--device", "cpu"] if tag == "port" else [])) == 0
+        text = capsys.readouterr().out
+        tallies.append(text[text.index("bin statistics"):])
+        assert out.read_bytes() == rec.read_bytes()
+    assert tallies[0] == tallies[1]
+    for key in ("sig_coeff_flag", "cu_skip_flag", "(bypass)"):
+        assert f"  {key} " in tallies[0]
+
+
+def test_checkpoint_with_spec_engine(tmp_path):
+    """--checkpoint --engine spec writes the spec model's checkpoint and
+    gives the reference CLI's bytes (whose default engine is the spec
+    model)."""
+    frames = motion_frames(3, 64, 64, seed=85)
+    src = tmp_path / "in.yuv"
+    yuv.write_yuv(str(src), frames)
+    outs = []
+    for tag, fn in (("port", tcli.main), ("ref", ref_main)):
+        out, ck = tmp_path / f"{tag}.bin", tmp_path / f"{tag}_ck.npz"
+        assert fn(["encode", "-i", str(src), "--wdt", "64", "--hgt", "64",
+                   "-q", "32", "--ip", "0", "-b", str(out), "--checkpoint",
+                   str(ck)] + (["--engine", "spec"] if tag == "port"
+                               else [])) == 0
+        assert ck.exists()
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    assert len(_decode(outs[0])) == 3

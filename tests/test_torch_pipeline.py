@@ -68,7 +68,7 @@ def test_corrupt_stream_fails_hash():
 
 
 @pytest.mark.parametrize("kw", [dict(ibc=True, intra_period=0, ctu=128),
-                                dict(ctu=256), dict(rdoq=False)])
+                                dict(ctu=256), dict(ibc=True, tile_cols=2)])
 def test_config_outside_slice_raises(kw):
     frames = motion_frames(n=1)
     with pytest.raises(ValueError, match="outside"):

@@ -2,9 +2,10 @@
 the PyTorch engine (all-intra, low-delay P or random access, with the
 multi-type tree, VVC's intra and inter toolsets, intra block copy and
 palette, dependent quantization, transform skip, joint Cb-Cr residuals,
-LMCS and ALF, the MCTF prefilter and rate control, at CTU 64 or 128),
-and the reference's stream tools (parcat, sei-remove, extract, merge,
-subpic-extract, subpic-merge, filmgrain, info).
+LMCS and ALF, the MCTF prefilter and rate control, at CTU 64 or 128,
+with RDOQ or the plain quantizer; closed-GOP segments in threads or over
+processes), and the reference's stream tools (parcat, sei-remove,
+extract, merge, subpic-extract, subpic-merge, filmgrain, info).
 
     python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
         --ip 32 --gop 16 --wpp -f 17 -b out.bin -o rec.yuv
@@ -32,21 +33,42 @@ subpic-extract, subpic-merge, filmgrain, info).
     python -m vvctpu_torch encode -c encoder_randomaccess.cfg -c seq.cfg
     python -m vvctpu_torch decode -b out.bin -o dec.yuv
     python -m vvctpu_torch info -b out.bin
+    python -m vvctpu_torch encode -i in.yuv --wdt 1920 --hgt 1080 -q 32 \\
+        --no-rdoq --gop-parallel 2 --ip 32 --gop 4 -f 8 -b gp.bin
+    python -m vvctpu_torch encode ... --distributed --coordinator \\
+        localhost:29500 --num-processes 2 --process-id 0   (and 1)
+    python -m vvctpu_torch parcat out.bin.seg0 out.bin.seg1 -o out.bin
+    python -m vvctpu_torch decode -b out.bin -o dec.yuv --bitstats \\
+        --trace-file dec.trc
 
 Option names follow ``python -m vvctpu``; ``--device`` picks the torch
-device (CUDA by default).  RDOQ off (from a cfg file) is outside the
-port and refused with the encoder's ValueError, and so is what the spec
-model refuses: IBC or palette at CTU 128, IBC with tiles, and tiles
-with WPP on a picture of more than one CTU row.  A cfg file's
-RateControl with TargetBitrate and FrameRate sets the rate controller's
-bits per frame where --rc-bpf is not given (the reference CLI reads
-those keys and does not apply them).
+device (CUDA by default) and ``--engine`` the encoder: ``torch``, the
+port (the default), or ``spec``, the copied spec model (the reference
+CLI's default engine).  ``--no-rdoq`` (or a cfg file's RDOQ : 0) turns
+RDOQ off.  ``--distributed`` joins ``--num-processes`` processes through
+torch.distributed (gloo) at ``--coordinator``; each, on its card of its
+host unless ``--device`` says otherwise, encodes its closed-GOP segment
+and writes ``<bitstream>.seg<rank>``, which ``parcat`` joins, as the
+reference's segments.  ``--gop-parallel N`` encodes N segments in
+threads on the one device and concatenates them.
+``--trace-file`` and ``--trace-rule`` write the syntax trace of the
+encode or the decode; the decoder's ``--bitstats`` prints the spec
+model's bin tally of the stream.  ``--checkpoint`` resumes the spec
+model's encode (``--engine spec``); the torch engine has no checkpoint
+and refuses it (the reference CLI ignores it there).  What the spec
+model refuses raises the encoder's ValueError: IBC or palette at CTU
+128, IBC with tiles, and tiles with WPP on a picture of more than one
+CTU row.  A cfg file's RateControl with TargetBitrate and FrameRate sets
+the rate controller's bits per frame where --rc-bpf is not given (the
+reference CLI reads those keys and does not apply them).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+
+from .core import trace as _trace
 
 # the tool flags of the slice, with the reference CLI's help
 _TOOLS = {
@@ -80,13 +102,12 @@ _TOOLS = {
 _HASH = {"md5": 0, "crc": 1, "checksum": 2}
 
 
-def _apply_cfg(args, defaults) -> dict:
+def _apply_cfg(args, defaults) -> None:
     """Fill the encode arguments from the layered cfg files ``args.cfg``,
     as the reference CLI does: a file's value applies where the command
     line left the option at its default (rate control's bits per frame
-    from RateControl, TargetBitrate and FrameRate where --rc-bpf is 0).
-    Returns the files' options that have no flag here (RDOQ), for
-    EncoderConfig as they are: check_config refuses RDOQ off."""
+    from RateControl, TargetBitrate and FrameRate where --rc-bpf is 0),
+    and a file's RDOQ : 0 turns RDOQ off."""
     from .io.cfg import load_layered, rc_bits_per_frame
     fc = load_layered(args.cfg)
     args.input = args.input or fc.input_file
@@ -101,9 +122,33 @@ def _apply_cfg(args, defaults) -> dict:
             setattr(args, a, getattr(fc, a))
     if defaults["rc_bpf"] == args.rc_bpf:
         args.rc_bpf = rc_bits_per_frame(fc)
+    if not fc.rdoq:
+        args.no_rdoq = True
     # a file's TileColumns and TileRows are read and not applied, as in
     # the reference CLI: only --tiles sets the tile grid
-    return dict(rdoq=fc.rdoq)
+
+
+def _segment(args, frames, gop: int):
+    """--distributed: join the processes (one process: nothing to join)
+    and keep this process's closed-GOP segment of ``frames``; returns
+    (frames, the bitstream's suffix).  Without --device each process
+    computes on its card of its host, cuda:{local rank % cards}."""
+    import torch
+
+    from .dist.gop import segment_for_process
+    from .dist.mesh import dist, init_distributed, rank_device
+    pi = init_distributed(args.coordinator, args.num_processes,
+                          args.process_id)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n == 1:
+        return frames, ""
+    if args.device is None:
+        args.device = rank_device("cuda")
+        torch.cuda.set_device(args.device)
+    s, e = segment_for_process(len(frames), n, gop, pi)
+    print(f"distributed: process {pi}/{n} encodes frames [{s}, {e}); "
+          "concatenate segments with 'python -m vvctpu_torch parcat'")
+    return frames[s:e], f".seg{pi}"
 
 
 def _enc(args) -> int:
@@ -115,6 +160,10 @@ def _enc(args) -> int:
         print("missing input/bitstream/wdt/hgt (flags or cfg)",
               file=sys.stderr)
         return 2
+    if args.checkpoint and args.engine == "torch":
+        raise ValueError("--checkpoint is outside the torch engine (the "
+                         "spec model's encoder resumes from checkpoints: "
+                         "--engine spec)")
     tc, tr = (int(v) for v in args.tiles.split("x"))
     sc, sr = (int(v) for v in args.subpics.split("x"))
     cfg = seq.EncoderConfig(
@@ -122,20 +171,41 @@ def _enc(args) -> int:
         intra_period=args.intra_period, gop=args.gop, wpp=args.wpp,
         tile_cols=tc, tile_rows=tr, subpic_cols=sc, subpic_rows=sr,
         rc_bits_per_frame=args.rc_bpf, hash_type=_HASH[args.hash],
-        **args.from_cfg,
-        **{t: getattr(args, t) for t in _TOOLS})
-    tenc.check_config(cfg)
+        rdoq=not args.no_rdoq, **{t: getattr(args, t) for t in _TOOLS})
+    if args.engine == "torch":
+        tenc.check_config(cfg)
     frames = yuv.read_yuv(args.input, args.wdt, args.hgt, args.frames,
                           args.bit_depth)
     if not frames:
         print("no frames read", file=sys.stderr)
         return 1
+    suffix = ""
+    if args.distributed:
+        frames, suffix = _segment(args, frames, cfg.gop)
+    if args.trace_file:
+        _trace.open_trace(args.trace_file, args.trace_rule)
     t0 = time.time()
-    data, recons, bits = tenc.encode_sequence(frames, cfg,
-                                              device=args.device)
+    try:
+        if args.gop_parallel > 1:
+            from .dist.gop import encode_gop_parallel
+            data, recons, bits = encode_gop_parallel(
+                frames, cfg, segments=args.gop_parallel, engine=args.engine,
+                threads=True, device=args.device)
+        elif args.engine == "spec":
+            data, recons, bits = seq.encode_sequence(
+                frames, cfg, checkpoint_path=args.checkpoint)
+        else:
+            data, recons, bits = tenc.encode_sequence(frames, cfg,
+                                                      device=args.device)
+    finally:
+        if args.trace_file:
+            _trace.close_trace()
     dt = time.time() - t0
-    with open(args.bitstream, "wb") as f:
+    with open(args.bitstream + suffix, "wb") as f:
         f.write(data)
+    if suffix:
+        from .dist.mesh import dist
+        dist.destroy_process_group()
     plan = {p[0]: p for p in seq.gop_plan(len(frames), args.intra_period,
                                           args.gop)}
     letter = {hls.SLICE_I: "I", hls.SLICE_P: "P", hls.SLICE_B: "B"}
@@ -160,15 +230,32 @@ def _dec(args) -> int:
     from .pipeline import encoder as tenc
     with open(args.bitstream, "rb") as f:
         data = f.read()
+    if args.trace_file:
+        _trace.open_trace(args.trace_file, args.trace_rule)
     t0 = time.time()
-    frames, sps = tenc.decode_sequence(data, check_hash=not args.no_hash,
-                                       device=args.device)
+    try:
+        frames, sps = tenc.decode_sequence(
+            data, check_hash=not args.no_hash, device=args.device)
+    finally:
+        if args.trace_file:
+            _trace.close_trace()
     dt = time.time() - t0
     yuv.write_yuv(args.output, frames, sps.bit_depth)
     print(f"decoded {len(frames)} frames "
           f"{frames[0][0].shape[1]}x{frames[0][0].shape[0]} in {dt:.2f} s "
           f"({len(frames) / max(dt, 1e-9):.3f} fps)"
           + ("" if args.no_hash else "; all picture hashes verified"))
+    if args.bitstats:
+        # the bin tally of the spec model's parser, as the reference
+        # CLI's (the port's parse is the copied entropy walker, which
+        # keeps none)
+        from .spec import sequence as seq
+        stats = {}
+        seq.decode_sequence(data, check_hash=False, stats=stats)
+        total = sum(stats.values())
+        print(f"bin statistics ({total} bins):")
+        for name, cnt in sorted(stats.items(), key=lambda kv: -kv[1]):
+            print(f"  {name:28s} {cnt:10d}  {100.0 * cnt / total:5.1f}%")
     return 0
 
 
@@ -276,6 +363,11 @@ def _device_arg(p) -> None:
                    help="torch device (default cuda)")
 
 
+def _trace_args(p) -> None:
+    p.add_argument("--trace-file", help="syntax trace output (dtrace equiv)")
+    p.add_argument("--trace-rule", default="D_SYNTAX,D_MODE,D_RESID:poc>=0")
+
+
 def _tool_parsers(sub) -> None:
     """The reference CLI's stream tools, option for option."""
     pc = sub.add_parser("parcat",
@@ -371,6 +463,26 @@ def main(argv=None) -> int:
                    help="rate control: target bits per frame (0 = off)")
     e.add_argument("--tiles", default="1x1", help="tile grid CxR")
     e.add_argument("--subpics", default="1x1", help="subpicture grid CxR")
+    e.add_argument("--no-rdoq", action="store_true",
+                   help="disable the RDOQ quantizer")
+    e.add_argument("--engine", choices=("torch", "spec"), default="torch",
+                   help="torch: the port; spec: the copied spec model "
+                   "(the reference CLI's default)")
+    e.add_argument("--checkpoint",
+                   help="encoder checkpoint .npz path (--engine spec)")
+    e.add_argument("--distributed", action="store_true",
+                   help="join --num-processes processes (torch.distributed,"
+                   " gloo); each encodes its closed-GOP segment to "
+                   "<bitstream>.seg<rank> (parcat to combine)")
+    e.add_argument("--coordinator", default=None,
+                   help="rendezvous address host:port (or tcp:// or file://"
+                   " URL)")
+    e.add_argument("--num-processes", type=int, default=None)
+    e.add_argument("--process-id", type=int, default=None)
+    e.add_argument("--gop-parallel", type=int, default=1, metavar="N",
+                   help="encode N closed-GOP segments independently (in "
+                   "threads) and concatenate")
+    _trace_args(e)
     _device_arg(e)
     e.set_defaults(fn=_enc)
     d = sub.add_parser("decode", help="decode Annex-B bitstream to YUV")
@@ -378,14 +490,17 @@ def main(argv=None) -> int:
     d.add_argument("-o", "--output", required=True)
     d.add_argument("--no-hash", action="store_true",
                    help="skip decoded-picture-hash verification")
+    d.add_argument("--bitstats", action="store_true",
+                   help="print CABAC bin counts per syntax class "
+                   "(DecoderAnalyser role; the spec model's parse)")
+    _trace_args(d)
     _device_arg(d)
     d.set_defaults(fn=_dec)
     _tool_parsers(sub)
     args = ap.parse_args(argv)
     if args.cmd == "encode":
-        args.from_cfg = (_apply_cfg(args, {a: e.get_default(a)
-                                           for a in vars(args)})
-                         if args.cfg else {})
+        if args.cfg:
+            _apply_cfg(args, {a: e.get_default(a) for a in vars(args)})
         if args.tt and not args.mtt:
             e.error("--tt requires --mtt")
     return args.fn(args)

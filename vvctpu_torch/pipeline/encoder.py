@@ -21,7 +21,9 @@ frame, derived on the host from the source luma and signalled in its
 slice header) and ALF with CC-ALF (parameters derived on the host,
 filters on the device), MCTF (the source's anchor pictures prefiltered on
 the device, coding/mctf.py) and rate control (one frame per group, each
-frame's QP from the bits of the frames before it).  All-intra
+frame's QP from the bits of the frames before it), with RDOQ or the
+plain quantizer.  With a mesh active (dist/shard.py use_mesh) each
+wave's tiles run on the ranks of its tile axis.  All-intra
 frames are reconstructed in groups of up to eight per frame-batched
 wave; one temporal layer's B frames are decided frame by frame and
 reconstructed in one frame-batched wave, each frame with its own LMCS
@@ -45,6 +47,7 @@ from ..coding import decide as tdecide
 from ..coding import mctf as tmctf
 from ..core import bitstream as bs
 from ..core import trace as _trace
+from ..dist import shard
 from ..dist.subpic import decode_subpics, encode_subpics, subpic_rects
 from ..kernels import loopfilter as lfk
 from ..spec import alf as salf
@@ -61,12 +64,10 @@ _GROUP = 8
 
 
 def check_config(cfg: sseq.EncoderConfig) -> None:
-    """Raise ValueError for a configuration outside the port: RDOQ off or
-    12 bits, and what the spec model refuses (CTUs other than 64 and 128,
-    IBC or palette at CTU 128, IBC with tiles)."""
+    """Raise ValueError for a configuration outside the port: 12 bits, and
+    what the spec model refuses (CTUs other than 64 and 128, IBC or
+    palette at CTU 128, IBC with tiles)."""
     bad = []
-    if not cfg.rdoq:
-        bad.append("rdoq=False")
     if cfg.bit_depth not in (8, 10):
         bad.append(f"bit_depth={cfg.bit_depth}")
     if cfg.ctu not in (64, 128):
@@ -76,9 +77,9 @@ def check_config(cfg: sseq.EncoderConfig) -> None:
     if cfg.ibc and cfg.tile_cols * cfg.tile_rows > 1:
         bad.append("IBC with tiles")
     if bad:
-        raise ValueError("outside the PyTorch port's slice (8 or 10 bits, "
-                         "RDOQ on; as in the spec model, CTU 64 or 128, IBC "
-                         "and palette at CTU 64, no IBC with tiles): "
+        raise ValueError("outside the PyTorch port's slice (8 or 10 bits; "
+                         "as in the spec model, CTU 64 or 128, IBC and "
+                         "palette at CTU 64, no IBC with tiles): "
                          + ", ".join(bad))
 
 
@@ -190,18 +191,30 @@ def _wave(frames_m, sps, **kw):
     """frame_wave_batch over the members of several frames (_wave_frame):
     one call per tile size, with every tile of that size of every frame,
     the tiles of frame i sharing reference index i; each frame's tiles
-    are then written into its full planes.  Returns a frame_wave_batch
-    10-tuple per frame."""
+    are then written into its full planes.  With a mesh active
+    (dist/shard.py use_mesh) whose tile axis has one rank per tile, and
+    every tile of one size, tile t of every frame runs on rank t
+    (shard.sharded_wave).  Returns a frame_wave_batch 11-tuple per
+    frame."""
     geo = {}
     for i, members in enumerate(frames_m):
         for j, m in enumerate(members):
             x0, y0, x1, y1 = m["rect"]
             geo.setdefault((x1 - x0, y1 - y0), []).append((i, j))
-    res = {}
-    for (tw, th), idx in geo.items():
-        res.update(zip(idx, wave.frame_wave_batch(
-            [dict(frames_m[i][j], ref_idx=i) for i, j in idx], frame_w=tw,
-            frame_h=th, log2_ctu=sps.log2_ctu, **kw)))
+    mesh = shard.active_mesh()
+    if (mesh is not None and len(geo) == 1
+            and len(frames_m[0]) == shard.tile_ranks(mesh) > 1):
+        # every tile one size and one tile per rank of the mesh's tile
+        # axis (the reference's condition): tile t of every frame on rank t
+        (tw, th), = geo
+        res = shard.sharded_wave(mesh, frames_m, dict(
+            frame_w=tw, frame_h=th, log2_ctu=sps.log2_ctu, **kw))
+    else:
+        res = {}
+        for (tw, th), idx in geo.items():
+            res.update(zip(idx, wave.frame_wave_batch(
+                [dict(frames_m[i][j], ref_idx=i) for i, j in idx],
+                frame_w=tw, frame_h=th, log2_ctu=sps.log2_ctu, **kw)))
     outs = []
     for i, members in enumerate(frames_m):
         if len(members) == 1:
@@ -486,6 +499,9 @@ def _emit_frame(cfg, sps, pps, dec, poc, stype, ref_pocs, qpd, tid,
     mot[poc] = scodec.motion_record(dec, ref_pocs)
 
     def tail():
+        # the syntax trace's picture (the copied entropy coder does not set
+        # it; the spec model's frame coder does)
+        _trace.set_poc(poc)
         with _stage("entropy", stage_times):
             payload = entropy.encode_frame_syntax(
                 sps, pps, sh, dec, [ly, lcb, lcr], sao_params, alf_params,
@@ -593,6 +609,9 @@ def _parse(data: bytes, check_hash: bool):
             pps_map[p.pps_id] = p
         elif nal.nal_type in (bs.NAL_IDR_N_LP, bs.NAL_IDR_W_RADL,
                               bs.NAL_TRAIL, bs.NAL_CRA):
+            if _trace.enabled:
+                _trace.set_poc(hls.SliceHeader.read(
+                    bs.BitReader(nal.payload)).poc)
             sh, dec, levels, sao_params, alf_params = \
                 entropy.parse_frame_syntax(nal.payload, sps, pps_map,
                                            motion=mot)
